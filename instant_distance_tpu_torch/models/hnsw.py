@@ -1,0 +1,257 @@
+"""Public index API: ``Hnsw``, ``HnswMap``, ``Search``, ``Neighbor`` (port
+of ``instant_distance_tpu/models/hnsw.py``).
+
+Same names, arguments and results as the JAX package, with torch tensors
+where it returns jax arrays.  An index lives on the device of the tensors
+it was built from (``index.device``).  Incremental ``add`` and
+``dump``/``load`` wait (ROADMAP.md §1 items 4-5).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Iterator, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..ops.beam import hnsw_search
+from ..ops.construct import BuiltGraph, build_graph
+from ..ops.distance import resolve, torch_dtype
+from ..utils.convert import as_tensor
+
+
+@dataclasses.dataclass
+class Neighbor:
+    """One search result (reference py src/lib.rs:327-357)."""
+
+    distance: float
+    pid: int
+    value: Any = None
+    #: Index backing the lazy ``point`` lookup (not part of repr/eq).
+    _index: Any = dataclasses.field(default=None, repr=False,
+                                    compare=False)
+
+    @property
+    def point(self) -> Optional[np.ndarray]:
+        """The result's point vector (``index[pid]``), or None."""
+        if self._index is None:
+            return None
+        return self._index[self.pid]
+
+    def __repr__(self) -> str:
+        if self.value is None:
+            return (f"instant_distance.Item(distance={self.distance}, "
+                    f"pid={self.pid})")
+        return (f"instant_distance.Neighbor(distance={self.distance}, "
+                f"pid={self.pid}, value={self.value!r})")
+
+
+class Search:
+    """Search buffer and result set (reference py src/lib.rs:159-209):
+    holds the results of the most recent ``search``; iterate it for
+    ``Neighbor``s."""
+
+    def __init__(self) -> None:
+        self._dists: Optional[np.ndarray] = None
+        self._pids: Optional[np.ndarray] = None
+        self._index: Optional["Hnsw"] = None
+        self._map: Optional["HnswMap"] = None
+        self._cur = 0
+
+    def _arm(self, dists, pids, index=None, map_=None):
+        self._dists, self._pids = dists, pids
+        self._index, self._map = index, map_
+        self._cur = 0
+
+    def __iter__(self) -> "Search":
+        self._cur = 0
+        return self
+
+    def __next__(self) -> Neighbor:
+        while True:
+            if self._pids is None or self._cur >= len(self._pids):
+                raise StopIteration
+            pid = int(self._pids[self._cur])
+            dist = float(self._dists[self._cur])
+            self._cur += 1
+            if pid >= 0:
+                break
+        value = self._map.values[pid] if self._map is not None else None
+        return Neighbor(dist, pid, value,
+                        self._map if self._map is not None else self._index)
+
+    def __len__(self) -> int:
+        if self._pids is None:
+            return 0
+        return int((self._pids >= 0).sum())
+
+
+def _check_points(arr, what: str, dim: Optional[int] = None):
+    if arr.dim() != 2:
+        raise ValueError(f"{what} must be a [N, D] 2-D array, got shape "
+                         f"{tuple(arr.shape)}")
+    if dim is not None and arr.shape[0] and arr.shape[1] != dim:
+        raise ValueError(f"{what} dim {arr.shape[1]} != index dim {dim}")
+    return arr
+
+
+class Hnsw:
+    """Immutable HNSW index: ``points`` [N, D], ``zero`` [N, M*2] int32
+    adjacency, ``layers`` [end_l, M] upper-layer snapshots
+    (layers[l-1] = level l, the reference's layout)."""
+
+    def __init__(self, points, zero, layers, config: Config, alive=None):
+        points = as_tensor(points)
+        self.device = points.device
+        self.points = points.to(torch_dtype(config.dtype))
+        self.zero = as_tensor(zero, self.device, torch.int32)
+        self.layers = [as_tensor(l, self.device, torch.int32)
+                       for l in layers]
+        self.config = config
+        self.metric = resolve(config.metric)
+        #: Tombstone mask, bool [N]; None = nothing deleted.
+        self._alive = (None if alive is None
+                       else as_tensor(alive, self.device, torch.bool))
+        #: Reverse-edge additions lost to an explicit rev_rounds cap.
+        self.reverse_drops = 0
+
+    # -- construction ------------------------------------------------------
+    @classmethod
+    def build(cls, points, config: Optional[Config] = None, *,
+              progress=None, device=None) -> tuple["Hnsw", np.ndarray]:
+        """Build the index; returns (index, ids) where ids maps the
+        original point order to PointIds.  Builds on ``points``' device
+        when it is a tensor, else on ``device`` (CPU by default)."""
+        config = config or Config()
+        if len(np.shape(points)) != 2:
+            raise ValueError(f"points must be a [N, D] 2-D array, got "
+                             f"shape {tuple(np.shape(points))}")
+        g: BuiltGraph = build_graph(points, config, progress=progress,
+                                    device=device)
+        index = cls(g.points, g.zero, g.layers, config)
+        index.reverse_drops = g.reverse_drops
+        return index, g.ids
+
+    def delete(self, pids) -> None:
+        """Tombstone points: excluded from results, still routed through."""
+        if self._alive is None:
+            self._alive = torch.ones(len(self), dtype=torch.bool,
+                                     device=self.device)
+        idx = np.atleast_1d(np.asarray(pids, np.int64))
+        if idx.size and (idx.min() < 0 or idx.max() >= len(self)):
+            raise IndexError("pid out of range")
+        self._alive[torch.as_tensor(idx, device=self.device)] = False
+
+    # -- queries -----------------------------------------------------------
+    def _eligible(self, filter_mask):
+        eligible = self._alive
+        if filter_mask is not None:
+            fm = as_tensor(filter_mask, self.device, torch.bool)
+            if tuple(fm.shape) != (len(self),):
+                raise ValueError(f"filter_mask must be [N]={len(self)}, "
+                                 f"got {tuple(fm.shape)}")
+            eligible = fm if eligible is None else (eligible & fm)
+        return eligible
+
+    def search_batch(self, queries, k: Optional[int] = None,
+                     ef: Optional[int] = None, filter_mask=None):
+        """Batched query: [B, D] -> (dists [B, k], pids [B, k]).
+
+        ``filter_mask`` (bool [N], pid order): only mask-true points may
+        appear in results; traversal still routes through the rest.
+        """
+        queries = as_tensor(queries, self.device, torch.float32)
+        if queries.dim() == 1:
+            queries = queries[None]
+        _check_points(queries, "queries", self.points.shape[1])
+        cfg = self.config
+        ef = ef or cfg.ef_search
+        k = k or ef
+        if k > ef:
+            raise ValueError(f"k={k} > ef={ef}")
+        d, p = hnsw_search(
+            queries, self.zero, tuple(reversed(self.layers)), self.points,
+            self.metric, ef=ef, m=cfg.m, zero_links=cfg.m0,
+            max_iter_factor=cfg.max_iter_factor,
+            expand=cfg.search_expand,
+            eligible=self._eligible(filter_mask),
+            entry_seeds=min(cfg.entry_seeds, len(self)))
+        return d[:, :k], p[:, :k]
+
+    def _search_one(self, point):
+        d, p = self.search_batch(point)
+        return d[0].cpu().numpy(), p[0].cpu().numpy()
+
+    def search(self, point, search: Search) -> Iterator[Neighbor]:
+        """Single-query API (py src/lib.rs:146-156): fills and arms the
+        ``Search``; returns an iterator over it."""
+        if len(self) == 0:
+            search._arm(np.zeros(0, np.float32), np.zeros(0, np.int32),
+                        index=self)
+        else:
+            search._arm(*self._search_one(point), index=self)
+        return iter(search)
+
+    # -- introspection -----------------------------------------------------
+    def __len__(self) -> int:
+        return int(self.points.shape[0])
+
+    def __getitem__(self, pid: int):
+        return self.points[pid].float().cpu().numpy()
+
+    def iter(self):
+        pts = self.points.float().cpu().numpy()
+        return ((i, pts[i]) for i in range(len(pts)))
+
+    def get(self, i: int, search: Search) -> Optional[Neighbor]:
+        if search._pids is None or i >= len(search._pids):
+            return None
+        pid = int(search._pids[i])
+        if pid < 0:
+            return None
+        return Neighbor(float(search._dists[i]), pid, None, self)
+
+
+class HnswMap(Hnsw):
+    """Hnsw with values attached to points; ``values[pid]`` is the value
+    of point ``pid`` (reordered at build, lib.rs:141-152)."""
+
+    def __init__(self, points, zero, layers, config, values: Sequence):
+        super().__init__(points, zero, layers, config)
+        self.values = list(values)
+
+    @classmethod
+    def build(cls, points, values, config: Optional[Config] = None, *,
+              progress=None, device=None) -> "HnswMap":
+        if len(points) != len(values):
+            raise ValueError("points and values must have the same length")
+        config = config or Config()
+        hnsw, ids = Hnsw.build(points, config, progress=progress,
+                               device=device)
+        reordered = [None] * len(values)
+        for src, pid in enumerate(ids):
+            reordered[pid] = values[src]
+        return cls(hnsw.points, hnsw.zero, hnsw.layers, config, reordered)
+
+    def search(self, point, search: Search) -> Iterator[Neighbor]:
+        if len(self) == 0:
+            search._arm(np.zeros(0, np.float32), np.zeros(0, np.int32),
+                        map_=self)
+        else:
+            search._arm(*self._search_one(point), map_=self)
+        return iter(search)
+
+    def search_batch_values(self, queries, k: Optional[int] = None):
+        """Batched query returning (dists, pids, values-nested-list)."""
+        d, p = self.search_batch(queries, k)
+        vals = [[self.values[pid] if pid >= 0 else None for pid in row]
+                for row in p.cpu().tolist()]
+        return d, p, vals
+
+    def get(self, i: int, search: Search) -> Optional[Neighbor]:
+        item = super().get(i, search)
+        if item is not None:
+            item.value = self.values[item.pid]
+        return item

@@ -1,0 +1,303 @@
+"""ScanIndex: int8 exhaustive scan + exact rerank (port of
+``instant_distance_tpu/models/scan.py``).
+
+Two search paths, as in the JAX package:
+
+* ``fused="bucket_pack"``: the packed-key scan kernel
+  (``ops/scan_kernel.py``, CUDA on the GPU) scores every point and keeps
+  one key per ``lsub``-wide stride group; the exact top-ef of those keys
+  is reranked with exact f32 distances.
+* the default streamed scan: per-point-scale int8 products in column
+  chunks with a running top-ef merge, then the same rerank.
+
+Candidate selection is exact ``torch.topk`` where the JAX package used
+``approx_min_k`` (exact on its CPU reference, approximate on the TPU).
+Other ``fused`` modes need kernels K2, K3 and K5, and ``sel_group`` /
+``sel_kgroup`` the grouped selection; both wait (ROADMAP.md §1-2).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..ops.distance import resolve, torch_dtype
+from ..ops.packed import quantize_points
+from ..ops.scan_kernel import (PACK_OFFSET, decode_keys,
+                               fused_scan_bucket_int_packed, int8_matmul,
+                               pack_operands, pack_w2, quantize_batch)
+from ..ops.sort import sort2
+from ..utils.convert import as_tensor
+
+_I32MAX = np.iinfo(np.int32).max
+
+
+def _quantize_queries(queries):
+    """Per-query symmetric int8 (same scheme as quantize_points)."""
+    amax = queries.abs().amax(dim=-1)
+    scale = torch.clamp(amax, min=1e-30) / 127.0
+    codes = torch.clamp(torch.round(queries / scale[:, None]), -127, 127)
+    return codes.to(torch.int8), scale
+
+
+def scan_candidates(queries, codes, scales, norms, eligible, *,
+                    metric_name: str, ef: int, chunk: int, tile: int = 0):
+    """Streamed quantized scan: [B, D] queries vs [N] codes -> (approx
+    dists [B, ef], ids [B, ef]) sorted by (dist, id), -1 padded.
+    ``tile > 1`` keeps only each ``tile``-wide slice's best column."""
+    b = queries.shape[0]
+    n = codes.shape[0]
+    dev = queries.device
+    chunk = min(chunk, n)
+    if tile > 1:
+        if chunk < 4 * tile or chunk // tile < ef:
+            tile = 0
+        else:
+            chunk = (chunk // tile) * tile
+    ef = min(ef, n)
+
+    qc, qs = _quantize_queries(queries)
+    is_dot = metric_name in ("dot", "cosine")
+    if metric_name == "cosine":
+        qn = torch.sqrt((queries * queries).sum(1))
+        qs = qs / torch.clamp(qn, min=1e-30)
+
+    best_d = torch.full((b, ef), torch.inf, device=dev)
+    best_i = torch.full((b, ef), _I32MAX, dtype=torch.int32, device=dev)
+    for s in range(0, n, chunk):
+        e = min(s + chunk, n)
+        dot = int8_matmul(qc, codes[s:e].T)                   # [B, C]
+        prod = (qs[:, None] * scales[None, s:e]) * dot.float()
+        if metric_name == "cosine":
+            d = -prod * torch.rsqrt(torch.clamp(norms[s:e], min=1e-30))[None]
+        elif is_dot:
+            d = -prod
+        else:  # squared L2 up to the per-query constant |q|^2
+            d = norms[None, s:e] - 2.0 * prod
+        if eligible is not None:
+            d = torch.where(eligible[None, s:e], d, torch.inf)
+        ids = torch.arange(s, e, dtype=torch.int32, device=dev)
+        sel_ids = ids.expand(b, -1)
+        if tile > 1:
+            pad = (-(e - s)) % tile
+            if pad:  # ragged last chunk: pad to whole tiles
+                d = torch.nn.functional.pad(d, (0, pad), value=torch.inf)
+                ids = torch.nn.functional.pad(ids, (0, pad), value=-1)
+            d3 = d.view(b, -1, tile)
+            am = d3.argmin(dim=2, keepdim=True)
+            d = d3.gather(2, am)[..., 0]                      # [B, C/L]
+            sel_ids = ids.view(1, -1, tile).expand(b, -1, -1).gather(
+                2, am)[..., 0]
+        nd, nidx = torch.topk(d, min(ef, d.shape[1]), dim=1, largest=False)
+        ni = torch.where(torch.isfinite(nd), sel_ids.gather(1, nidx), -1)
+        cat_d = torch.cat([best_d, nd], dim=1)
+        cat_i = torch.cat([best_i, torch.where(ni >= 0, ni, _I32MAX)], dim=1)
+        sd, si = sort2(cat_d, cat_i)
+        best_d, best_i = sd[:, :ef], si[:, :ef]
+    best_i = torch.where(torch.isfinite(best_d), best_i, -1)
+    return best_d, best_i
+
+
+def rerank_exact(queries, points, bi, metric, k: int):
+    """Exact top-k over candidate ids: one ef-row gather per query."""
+    rows = points[bi.clamp(min=0)][..., :queries.shape[1]]
+    exact = metric.gathered(queries, rows)
+    exact = torch.where(bi >= 0, exact, torch.inf)
+    sd, si = sort2(exact, bi)
+    return sd[:, :k], si[:, :k]
+
+
+def _scan_search(queries, codes, scales, norms, points, eligible, *,
+                 metric_name, ef, k, chunk, rerank, tile=0):
+    bd, bi = scan_candidates(queries, codes, scales, norms, eligible,
+                             metric_name=metric_name, ef=ef, chunk=chunk,
+                             tile=tile)
+    if not rerank:
+        bd, bi = bd[:, :k], bi[:, :k]
+        # restore the per-query constants the streamed scan drops
+        if metric_name == "sqeuclidean":
+            qn2 = (queries * queries).sum(1, keepdim=True)
+            bd = torch.where(torch.isfinite(bd), bd + qn2, bd)
+        elif metric_name == "cosine":
+            bd = torch.where(torch.isfinite(bd), bd + 1.0, bd)
+        return bd, bi
+    return rerank_exact(queries, points, bi, resolve(metric_name), k)
+
+
+def _fused_int_packed_search(queries, codes_t, norms_r, sg, points,
+                             eligible, *, ef, k, lsub, cb, rerank):
+    """Packed-key scan + exact top-ef + rerank (the default selection
+    branch of ``_fused_int_packed_search_jit``, models/scan.py:321-338
+    of the JAX package)."""
+    d = queries.shape[1]
+    qc, qs = quantize_batch(queries)
+    denom = 2.0 * qs * sg
+    el = None
+    if eligible is not None:
+        npad = norms_r.shape[1] - eligible.shape[0]
+        el = torch.nn.functional.pad(eligible, (0, npad))[None, :]
+    w2 = pack_w2(norms_r, denom, el, lsub=lsub, cb=cb, d=d)
+    od = fused_scan_bucket_int_packed(qc, w2, codes_t, lsub=lsub, cb=cb)
+    keys, nidx = torch.topk(od, min(ef, od.shape[1]), dim=1, largest=False)
+    bi = decode_keys(keys, nidx, lsub=lsub, cb=cb)
+    if not rerank:
+        shift = lsub.bit_length() - 1
+        rank = ((keys >> shift) - PACK_OFFSET // lsub
+                - 127 * 127 * d).float()
+        qn2 = (queries * queries).sum(1, keepdim=True)
+        bd = torch.where(bi >= 0, rank * denom + qn2, torch.inf)
+        bd, bi = sort2(bd, bi)
+        return bd[:, :k], bi[:, :k]
+    return rerank_exact(queries, points, bi, resolve("sqeuclidean"), k)
+
+
+class ScanIndex:
+    """Quantized exhaustive-scan index (int8 scoring + exact rerank).
+
+    Ids are the input order.  Supports values, tombstones and exact
+    result filters.  Lives on ``points``' device (numpy input: the
+    ``device`` argument, CPU by default).
+    """
+
+    _FUSED_CB = 4096
+
+    def __init__(self, points, metric: str = "sqeuclidean",
+                 chunk: int = 1 << 17,
+                 values: Optional[Sequence[Any]] = None,
+                 store_dtype: str = "float32", device=None):
+        if not isinstance(metric, str):
+            raise ValueError(
+                "ScanIndex needs a matmul-form metric name "
+                "(sqeuclidean/euclidean/dot/cosine); use BruteForce for "
+                "custom callables")
+        pts = as_tensor(points, device, torch.float32)
+        self.device = pts.device
+        self.points = pts.to(torch_dtype(store_dtype))
+        self.metric_name = metric
+        n = self.points.shape[0]
+        self.chunk = int(min(chunk, max(1, n)))
+        self.codes, self.scales = quantize_points(self.points)
+        deq = self.codes.float() * self.scales[:, None]
+        self.norms = (deq * deq).sum(1)                  # |p_hat|^2 [N]
+        self.values = None if values is None else list(values)
+        self._alive = None
+        self._fused_int = {}
+        self.config = Config(metric=metric)
+
+    @classmethod
+    def build(cls, points, config: Optional[Config] = None,
+              values=None, **kw) -> "ScanIndex":
+        metric = config.metric if config is not None else "sqeuclidean"
+        return cls(points, metric=metric, values=values, **kw)
+
+    @classmethod
+    def from_index(cls, index, **kw) -> "ScanIndex":
+        """Scan-serving index over a built Hnsw/HnswMap's points (pid
+        order), values and tombstones."""
+        metric = index.config.metric
+        if not isinstance(metric, str):
+            raise ValueError("from_index needs a named matmul metric")
+        obj = cls(index.points, metric=metric,
+                  values=getattr(index, "values", None), **kw)
+        alive = getattr(index, "_alive", None)
+        if alive is not None:
+            obj._alive = as_tensor(alive, obj.device, torch.bool)
+        return obj
+
+    def __len__(self) -> int:
+        return int(self.points.shape[0])
+
+    def delete(self, ids) -> None:
+        """Tombstone ids: they are never scored into results again."""
+        if self._alive is None:
+            self._alive = torch.ones(len(self), dtype=torch.bool,
+                                     device=self.device)
+        idx = np.atleast_1d(np.asarray(ids, np.int64))
+        if idx.size and (idx.min() < 0 or idx.max() >= len(self)):
+            raise IndexError("id out of range")
+        self._alive[torch.as_tensor(idx, device=self.device)] = False
+
+    def _eligible(self, filter_mask):
+        eligible = self._alive
+        if filter_mask is not None:
+            fm = as_tensor(filter_mask, self.device, torch.bool)
+            if tuple(fm.shape) != (len(self),):
+                raise ValueError(f"filter_mask must be [N]={len(self)}, "
+                                 f"got {tuple(fm.shape)}")
+            eligible = fm if eligible is None else (eligible & fm)
+        return eligible
+
+    def _fused_int_arrays(self, cb: int):
+        """Operands of the packed-key scan (:func:`pack_operands`),
+        cached per padded length."""
+        if cb not in self._fused_int:
+            self._fused_int[cb] = pack_operands(self.points.float(), cb)
+        return self._fused_int[cb]
+
+    def search_batch(self, queries, k: int = 10, ef: Optional[int] = None,
+                     rerank: bool = True, filter_mask=None, tile: int = 0,
+                     fused=False, lsub: int = 16, cb: int = 0,
+                     inner: int = 1, sel_group: int = 0,
+                     sel_kgroup: int = 0):
+        """[B, D] -> (dists [B, k], ids [B, k]); ids = input order.
+
+        Arguments as in the JAX package.  ``fused="bucket_pack"`` runs
+        the packed-key kernel; ``inner`` only pads the point axis to
+        ``cb * inner`` (the TPU grid's sub-chunking).  The JAX package's
+        TPU tiling and approximate-selection knobs (``qb``, ``slab``,
+        ``topt``, ``approx_topk``, ``sel_target``) have no counterpart:
+        the port has one kernel body and selects exactly.
+        """
+        queries = as_tensor(queries, self.device, torch.float32)
+        if queries.dim() == 1:
+            queries = queries[None]
+        ef = ef or max(4 * k, 32)
+        ef = int(min(ef, len(self)))
+        k = int(min(k, ef))
+        metric_name = self.metric_name
+        cb = cb or self._FUSED_CB
+        if fused and len(self) >= cb * inner:
+            mode = fused if isinstance(fused, str) else "bucket"
+            is_l2 = metric_name in ("sqeuclidean", "euclidean")
+            if mode in ("bucket_int", "bucket_pack") and not is_l2:
+                mode = "bucket"  # the shared-scale rank trick is L2-only
+            if mode.startswith("bucket") and lsub == 16 \
+                    and cb == self._FUSED_CB:
+                lsub = 32
+            if mode == "bucket_pack" and queries.shape[1] * lsub > 16384:
+                mode = "bucket_int"  # packed keys would overflow
+            if mode != "bucket_pack":
+                raise NotImplementedError(
+                    f"fused={mode!r} needs a scan kernel not ported yet "
+                    "(K2 bucket, K3 bucket_int, K5 topt; ROADMAP.md §2)")
+            if sel_group > 1 or sel_kgroup > 1:
+                raise NotImplementedError(
+                    "sel_group/sel_kgroup grouped selection is not ported "
+                    "yet (ROADMAP.md §1 item 3)")
+            codes_t, norms_r, sg = self._fused_int_arrays(cb * inner)
+            d, i = _fused_int_packed_search(
+                queries, codes_t, norms_r, sg, self.points,
+                self._eligible(filter_mask), ef=ef, k=k, lsub=lsub, cb=cb,
+                rerank=rerank)
+        else:
+            d, i = _scan_search(
+                queries, self.codes, self.scales, self.norms, self.points,
+                self._eligible(filter_mask),
+                metric_name=("sqeuclidean" if metric_name == "euclidean"
+                             else metric_name),
+                ef=ef, k=k, chunk=self.chunk, rerank=rerank, tile=tile)
+        if metric_name == "euclidean":
+            d = torch.sqrt(torch.clamp(d, min=0.0))
+        return d, i
+
+    def search_batch_values(self, queries, k: int = 10,
+                            ef: Optional[int] = None, filter_mask=None):
+        if self.values is None:
+            raise ValueError("this index carries no values")
+        d, i = self.search_batch(queries, k, ef, filter_mask=filter_mask)
+        vals = [[self.values[j] if j >= 0 else None for j in row]
+                for row in i.cpu().tolist()]
+        return d, i, vals
