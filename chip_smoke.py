@@ -1,27 +1,40 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one CUDA card.
 
-Drives the port's main path through the entry points a user calls, at
-the repo's real configuration (SIFT1M-shaped clustered data, 1M x 128,
-sqeuclidean, m=32):
+Drives the port's paths through the entry points a user calls, at the
+repo's real configurations, and holds every CUDA kernel of those paths
+against its plain torch version:
 
   1. device   — needs CUDA; prints the card's name and power limit;
-  2. build    — compiles the CUDA kernel from csrc/ (nvcc, at first use);
-  3. kernel   — the packed-key scan kernel vs its plain torch version:
-                on a slice the plain version holds whole, then on the
-                main path's own calls (the build's last wave, the scan
-                batch); bit-exact keys, both times from CUDA events;
-  4. scan     — ScanIndex(fused="bucket_pack") over 1M points, an
-                8192-query batch: qps and recall@10 against BruteForce;
-  5. hnsw     — Hnsw.build at --build-n points (default 1M), then
-                search_batch(ef=50): build time, qps and recall@10;
-  6. launches — the kernel must have run inside phases 4 and 5.
+  2. build    — compiles csrc/*.cu (one nvcc per source, in parallel);
+  3. kernels  — each kernel (K1 packed keys, K2 bucket, K3 bucket_int,
+                K5 topt) vs its plain version on random inputs from a
+                seeded generator on the card: a slice, then the paths'
+                own call shapes; results bit-exact, both timed with CUDA
+                events in turns;
+  4. scan     — ScanIndex(fused="bucket_pack") over SIFT1M-shaped data
+                (1M x 128), an 8192-query batch: qps, recall@10 vs
+                BruteForce (K1);
+  5. hnsw     — Hnsw.build at --build-n points (default 1M) of that data,
+                then search_batch(ef=50): build time, qps, recall (K1);
+  6. scan300  — fastText-shaped data (1M x 300, the width of the
+                reference binding's FloatArray): ScanIndex with the same
+                bucket_pack request, which runs K3 at 300-d, then cosine
+                ScanIndex fused="bucket" (K2) and fused="topt" (K5);
+  7. hnsw300  — HnswMap.build of those 1M x 300 points with string
+                values, sqeuclidean (K2 in every wave), search_batch(ef=50)
+                and one search through the Search iterator;
+  8. launches — every kernel ran inside its paths (each path is driven
+                with the launch counts set to 0 just before it and read
+                just after).
 
-Every phase prints one line; any failure raises and the exit code is
-not 0.  The last two lines are the kernel record and the device record,
-one JSON object each.  Run from the repository root:
+Every phase prints a line; any failure raises and the exit code is not
+0.  The last two lines are the kernel record and the device record, one
+JSON object each.  Run from the repository root:
 
     python3 chip_smoke.py [--build-n N]
+
+``--build-n`` shrinks only the 128-d build of phase 5.
 """
 
 from __future__ import annotations
@@ -34,19 +47,39 @@ import time
 
 import numpy as np
 
-N_POINTS, DIM, N_QUERIES = 1_000_000, 128, 8192
+N_POINTS, DIM, DIM300, N_QUERIES = 1_000_000, 128, 300, 8192
 BLOCK, N_BLOCKS, K = 1024, 3, 10
 RECALL_FLOOR = 0.95   # minimum recall@10 over the disjoint query blocks
 SCAN_KW = dict(k=K, fused="bucket_pack", lsub=64, cb=8192, inner=2, ef=32)
-KERNEL_SRC = "instant_distance_tpu_torch/csrc/scan_kernel.cu"
-KERNEL_REPLACES = "instant_distance_tpu/ops/scan_kernel.py:304"
+#: ScanIndex's default point block, and the build's K2 block and width.
+SCAN_CB, BUILD_CB, BUILD_LSUB = 4096, 4096, 32
+TOPT, TOPT_LSUB = 8, 16
+#: H100 SXM peaks (NVIDIA's data sheet): dense int8 tensor-core rate and
+#: HBM3 bandwidth.  A kernel's bound is the larger of its operations and
+#: its bytes (each input read once, each output written once) over them.
+PEAK_INT8_OPS, PEAK_BYTES = 1979e12, 3.35e12
+
+SRC = "instant_distance_tpu_torch/csrc/"
+JAX_KERNELS = "instant_distance_tpu/ops/scan_kernel.py"
+#: kernel -> (source, the TPU kernel's pallas_call it replaces)
+KERNELS = {
+    "fused_scan_bucket_int_packed": (SRC + "scan_kernel.cu",
+                                     JAX_KERNELS + ":465"),
+    "fused_scan_bucket": (SRC + "bucket_kernel.cu", JAX_KERNELS + ":117"),
+    "fused_scan_bucket_int": (SRC + "bucket_kernel.cu", JAX_KERNELS + ":224"),
+    "fused_scan_topt": (SRC + "bucket_kernel.cu", JAX_KERNELS + ":642"),
+}
 
 
 def _phase(name: str, msg: str) -> None:
     print(f"[{name}] {msg}", flush=True)
 
 
-def _cuda_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
+def _padded(n: int, to: int) -> int:
+    return -(-n // to) * to
+
+
+def _cuda_ms(torch, fn, iters: int, warmup: int = 1) -> float:
     """Mean device milliseconds per call, from CUDA events."""
     for _ in range(warmup):
         fn()
@@ -72,6 +105,196 @@ def _wall_s(torch, fn, iters: int = 5) -> float:
     return (time.perf_counter() - t0) / iters
 
 
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+#: (label, kernel, B, D, N, lsub, cb, options).  The shapes of the paths'
+#: own calls: K1 in the 1M x 128 build's last wave and the ScanIndex
+#: batch (points padded to cb * inner); K2 in the 1M x 300 build's last
+#: wave (B=4096 against every point, padded to the build's cb) and the
+#: cosine "bucket" batch; K3 in the 300-d "bucket_pack" batch; K5 in the
+#: cosine "topt" batch.  The first case of each kernel is the one its
+#: JSON record reports.
+KERNEL_CASES = (
+    ("scan batch", "fused_scan_bucket_int_packed", N_QUERIES, DIM,
+     _padded(N_POINTS, 8192 * 2), 64, 8192, {}),
+    ("slice", "fused_scan_bucket_int_packed", 1024, DIM, 65536, 64, 8192,
+     {"groups": 2}),
+    ("build wave", "fused_scan_bucket_int_packed", 4096, DIM,
+     _padded(N_POINTS, 8192), 64, 8192, {}),
+    ("build wave", "fused_scan_bucket", 4096, DIM300,
+     _padded(N_POINTS, BUILD_CB), BUILD_LSUB, BUILD_CB, {"is_dot": False}),
+    ("slice", "fused_scan_bucket", 1000, DIM300, 65536, 32, 4096,
+     {"is_dot": True}),
+    ("bucket batch", "fused_scan_bucket", N_QUERIES, DIM300,
+     _padded(N_POINTS, SCAN_CB), 32, SCAN_CB, {"is_dot": True}),
+    ("scan batch", "fused_scan_bucket_int", N_QUERIES, DIM300,
+     _padded(N_POINTS, 8192 * 2), 64, 8192, {}),
+    ("slice", "fused_scan_bucket_int", 1000, DIM300, 65536, 64, 8192, {}),
+    ("topt batch", "fused_scan_topt", N_QUERIES, DIM300,
+     _padded(N_POINTS, SCAN_CB), TOPT_LSUB, SCAN_CB, {"is_dot": True}),
+    ("slice", "fused_scan_topt", 1000, DIM300, 65536, TOPT_LSUB, 4096,
+     {"is_dot": False}),
+)
+
+
+def _operands(torch, tsk, dev, kernel, b, d, n, lsub, cb, opts):
+    """Random operands of one case: int8 codes over the whole range,
+    points past N_POINTS as padding (+inf / ineligible), 10% of the
+    rest ineligible.  Returns (row operands, shared operands, kwargs):
+    the row operands have one row per query."""
+    g = torch.Generator(device=dev).manual_seed(b * 7 + n + d)
+    qc = torch.randint(-127, 128, (b, d), generator=g, device=dev,
+                       dtype=torch.int8)
+    codes = torch.randint(-127, 128, (d, n), generator=g, device=dev,
+                          dtype=torch.int8)
+    norms = torch.rand((1, n), generator=g, device=dev) * 4
+    out = torch.rand((1, n), generator=g, device=dev) < 0.1
+    out[0, min(n, N_POINTS) if n > N_POINTS else n - n // 16:] = True
+    kw = dict(lsub=lsub, cb=cb)
+    if kernel == "fused_scan_bucket_int_packed":
+        norms[out] = torch.inf
+        w2 = tsk.pack_w2(norms, torch.tensor(2 * 0.011 * 0.019, device=dev),
+                         None, lsub=lsub, cb=cb, d=d)
+        return (qc,), (w2, codes), dict(kw, **opts)
+    if kernel == "fused_scan_bucket_int":
+        w = torch.round(norms / (2 * 0.011 * 0.019)).to(torch.int32)
+        w[out] = (2**31 - 1) // 2
+        return (qc,), (w, codes), kw
+    qs = torch.rand((b, 1), generator=g, device=dev) * 0.02 + 1e-3
+    scales = torch.rand((1, n), generator=g, device=dev) * 0.02 + 1e-3
+    if opts["is_dot"]:
+        norms = torch.zeros_like(norms)
+    norms[out] = torch.inf
+    if kernel == "fused_scan_topt":
+        kw["topt"] = TOPT
+    return (qc, qs), (codes, scales, norms), dict(kw, **opts)
+
+
+def _call(tsk, kernel, rows, shared, kw, plain: bool = False):
+    """The kernel (or its plain version) on (row operands, shared ones) in
+    the wrapper's argument order."""
+    fn = getattr(tsk, kernel + ("_plain" if plain else ""))
+    if kernel in ("fused_scan_bucket_int_packed", "fused_scan_bucket_int"):
+        return fn(rows[0], shared[0], shared[1], **kw)
+    return fn(rows[0], rows[1], *shared, **kw)
+
+
+def _plain_by_rows(torch, tsk, kernel, rows, shared, kw):
+    """The plain version over blocks of query rows, concatenated: rows
+    are independent, and a block's [rows, N] matrices fit the card where
+    the whole batch's would not."""
+    step = max(1, (1 << 28) // shared[-1].shape[1])
+    outs = [_call(tsk, kernel, [r[s:s + step] for r in rows], shared, kw,
+                  plain=True) for s in range(0, rows[0].shape[0], step)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(x) for x in zip(*outs))
+    return torch.cat(outs)
+
+
+def _max_err(torch, got, want) -> float:
+    """Largest |got - want| over every output (inf where one side is
+    infinite and the other is not; equal infinities count 0)."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = 0.0
+    for x, y in zip(got, want):
+        if x.shape != y.shape or x.dtype != y.dtype:
+            return float("inf")
+        if x.is_floating_point():
+            same = (x == y) | (torch.isnan(x) & torch.isnan(y))
+            diff = torch.where(same, 0.0, (x - y).abs().nan_to_num(
+                nan=float("inf")))
+        else:
+            diff = (x.long() - y.long()).abs()
+        err = max(err, float(diff.max()) if diff.numel() else 0.0)
+    return err
+
+
+def _bound(b, d, n, rows, shared, out):
+    """(bound ms, what bounds it) for one call: 2*B*N*D int8 operations
+    at the int8 peak, or the inputs read once and outputs written once
+    at the HBM rate."""
+    outs = out if isinstance(out, tuple) else (out,)
+    nbytes = sum(t.numel() * t.element_size() for t in (*rows, *shared,
+                                                         *outs))
+    t_ops = 2 * b * n * d / PEAK_INT8_OPS
+    t_bytes = nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_kernels(torch, tsk, dev):
+    """Phase 3.  Returns {kernel: record of its first case}."""
+    records = {}
+    for label, kernel, b, d, n, lsub, cb, opts in KERNEL_CASES:
+        rows, shared, kw = _operands(torch, tsk, dev, kernel, b, d, n, lsub,
+                                     cb, opts)
+        got = _call(tsk, kernel, rows, shared, kw)
+        want = _plain_by_rows(torch, tsk, kernel, rows, shared, kw)
+        torch.cuda.synchronize()
+        err = _max_err(torch, got, want)
+        if err != 0:
+            raise AssertionError(f"{kernel} {label}: kernel differs from "
+                                 f"plain by {err}")
+        bound_ms, bound_by = _bound(b, d, n, rows, shared, got)
+        del got, want
+        iters = 3 if b * n > 1 << 32 else 10
+
+        def kern():
+            _call(tsk, kernel, rows, shared, kw)
+
+        def plain():
+            _plain_by_rows(torch, tsk, kernel, rows, shared, kw)
+
+        # in turns: plain, kernel, kernel, plain
+        p1, k1, k2, p2 = (_cuda_ms(torch, f, iters)
+                          for f in (plain, kern, kern, plain))
+        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        _phase("kernels", f"{kernel} {label} B={b} D={d} N={n} "
+               f"{ {**kw, **opts} }: bit-exact; kernel {ms:.4f} ms, plain "
+               f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        records.setdefault(kernel, dict(
+            case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by))
+        del rows, shared
+        torch.cuda.empty_cache()
+    return records
+
+
+# ---------------------------------------------------------------------------
+# the paths
+# ---------------------------------------------------------------------------
+
+class Launches:
+    """Kernel launches per path: each path runs with every count set to 0
+    just before it and read just after."""
+
+    def __init__(self, tsk):
+        self.tsk = tsk
+        self.paths = {}
+
+    def run(self, path: str, fn):
+        for name in self.tsk.launches:
+            self.tsk.launches[name] = 0
+        out = fn()
+        self.paths[path] = dict(self.tsk.launches)
+        return out
+
+    def total(self, kernel: str) -> int:
+        return sum(counts[kernel] for counts in self.paths.values())
+
+    def need(self, path: str, kernels, absent=()) -> None:
+        counts = self.paths[path]
+        for k in kernels:
+            if counts[k] < 1:
+                raise AssertionError(f"{path}: {k} was not launched")
+        for k in absent:
+            if counts[k]:
+                raise AssertionError(f"{path}: {k} ran {counts[k]} times")
+
+
 def _recall_blocks(found, truth):
     """recall@K of each disjoint BLOCK-query block."""
     from instant_distance_tpu_torch.utils.metrics import recall_at_k
@@ -89,92 +312,71 @@ def _check_results(torch, d, i, n_rows: int, what: str) -> None:
         raise AssertionError(f"{what}: non-finite distance or missing id")
 
 
-def _padded(n: int, to: int) -> int:
-    return -(-n // to) * to
+def _check_recall(recs, what: str) -> None:
+    if min(recs) < RECALL_FLOOR:
+        raise AssertionError(f"{what} recall {min(recs)} < {RECALL_FLOOR}")
 
 
-#: Phase 3's cases, (label, B, N, groups) at D=128, lsub=64, cb=8192: the
-#: slice that the plain version holds whole, then the two calls of the
-#: main path at full size: the 1M build's last wave (4096 queries against
-#: every point, padded to cb) and the ScanIndex batch (points padded to
-#: cb * inner).
-KERNEL_CASES = (
-    ("slice", 1024, 65536, (0, 2)),
-    ("build wave", 4096, _padded(N_POINTS, SCAN_KW["cb"]), (0,)),
-    ("scan batch", N_QUERIES,
-     _padded(N_POINTS, SCAN_KW["cb"] * SCAN_KW["inner"]), (0,)),
-)
+def _scan(torch, launches, path, index, queries, gt, kw):
+    """One ScanIndex path: a checked batch, then the timed repeats."""
+    def run():
+        d, i = index.search_batch(queries, **kw)
+        _check_results(torch, d, i, queries.shape[0], path)
+        recs = _recall_blocks(i[:N_BLOCKS * BLOCK].cpu(), gt)
+        t = _wall_s(torch, lambda: index.search_batch(queries, **kw))
+        return recs, t
+
+    recs, t = launches.run(path, run)
+    _phase(path, f"{kw}: {queries.shape[0] / t:.1f} qps "
+           f"({t * 1e3:.2f} ms/batch of {queries.shape[0]}), recall@10 "
+           f"blocks {[round(r, 4) for r in recs]}, launches "
+           f"{ {k: v for k, v in launches.paths[path].items() if v} }")
+    _check_recall(recs, path)
 
 
-def _plain_by_rows(torch, tsk, qc, w2, codes, groups: int):
-    """The plain version over blocks of query rows, concatenated: rows
-    are independent, and a block's [rows, N] key matrix fits the card
-    where the whole batch's would not."""
-    rows = max(1, (1 << 28) // codes.shape[1])
-    outs = [tsk.fused_scan_bucket_int_packed_plain(
-        qc[s:s + rows], w2, codes, lsub=SCAN_KW["lsub"], cb=SCAN_KW["cb"],
-        groups=groups) for s in range(0, qc.shape[0], rows)]
-    if groups > 1:
-        return tuple(torch.cat(x) for x in zip(*outs))
-    return torch.cat(outs)
+def _build_path(torch, launches, path, build):
+    """One index build path: (index, build seconds, peak GiB)."""
+    marks = {}
+    t0 = time.perf_counter()
+
+    def progress(done, total, phase):
+        step = done * 10 // total
+        if step not in marks:
+            marks[step] = time.perf_counter()
+            print(f"  {path} {done}/{total} ({phase}) at "
+                  f"{marks[step] - t0:.1f} s", file=sys.stderr, flush=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    index = launches.run(path, lambda: build(progress))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    return index, build_s, peak_gib
 
 
-def _kernel_case(torch, tsk, dev, b: int, n: int, groups_list):
-    """One case of phase 3: (max |key difference|, kernel ms, plain ms)."""
-    d, lsub, cb = DIM, SCAN_KW["lsub"], SCAN_KW["cb"]
-    g = torch.Generator(device=dev).manual_seed(b + n)
-    qc = torch.randint(-127, 128, (b, d), generator=g, device=dev,
-                       dtype=torch.int8)
-    codes = torch.randint(-127, 128, (d, n), generator=g, device=dev,
-                          dtype=torch.int8)
-    norms = torch.rand((1, n), generator=g, device=dev) * 4
-    norms[0, N_POINTS if n > N_POINTS else n - 5000:] = torch.inf  # padding
-    eligible = torch.rand((1, n), generator=g, device=dev) < 0.9
-    w2 = tsk.pack_w2(norms, torch.tensor(2 * 0.011 * 0.019, device=dev),
-                     eligible, lsub=lsub, cb=cb, d=d)
-    max_err = 0
-    for groups in groups_list:
-        got = tsk.fused_scan_bucket_int_packed(qc, w2, codes, lsub=lsub,
-                                               cb=cb, groups=groups)
-        want = _plain_by_rows(torch, tsk, qc, w2, codes, groups)
-        got = got if groups > 1 else (got,)
-        want = want if groups > 1 else (want,)
-        for x, y in zip(got, want):
-            max_err = max(max_err, int((x.long() - y.long()).abs().max()))
-    del got, want
+def _search_path(torch, idt, launches, path, index, queries):
+    """search_batch(ef=50) on a built index: (recall blocks, seconds per
+    BLOCK-query batch)."""
+    nq = N_BLOCKS * BLOCK
+    gt = idt.BruteForce(index.points).search_batch(queries[:nq], K)[1].cpu()
 
-    def kern():
-        tsk.fused_scan_bucket_int_packed(qc, w2, codes, lsub=lsub, cb=cb)
+    def run():
+        d, p = index.search_batch(queries[:nq], k=K, ef=50)
+        _check_results(torch, d, p, nq, path)
+        recs = _recall_blocks(p.cpu(), gt)
+        t = _wall_s(torch, lambda: index.search_batch(queries[:BLOCK], k=K,
+                                                      ef=50))
+        return recs, t
 
-    def plain():
-        _plain_by_rows(torch, tsk, qc, w2, codes, 0)
-
-    # in turns: plain, kernel, kernel, plain
-    p1, k1, k2, p2 = (_cuda_ms(torch, f) for f in (plain, kern, kern, plain))
-    return max_err, (k1 + k2) / 2, (p1 + p2) / 2
-
-
-def phase_kernel(torch, tsk, dev):
-    """Phase 3: the kernel against its plain version, keys bit-exact,
-    both timed.  Returns (max |difference|, kernel ms, plain ms) of the
-    last case, the ScanIndex batch."""
-    max_err, parts = 0, []
-    for label, b, n, groups_list in KERNEL_CASES:
-        err, ms, plain_ms = _kernel_case(torch, tsk, dev, b, n, groups_list)
-        max_err = max(max_err, err)
-        parts.append(f"{label} B={b} N={n} groups {groups_list}: kernel "
-                     f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
-    if max_err != 0:
-        raise AssertionError(f"kernel keys differ from plain: {max_err}")
-    _phase("kernel", f"D={DIM} lsub={SCAN_KW['lsub']} cb={SCAN_KW['cb']}, "
-           f"keys bit-exact in every case; " + "; ".join(parts))
-    return max_err, ms, plain_ms
+    return launches.run(path + " search", run)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--build-n", type=int, default=N_POINTS,
-                    help="points in the HNSW build (default: 1M)")
+                    help="points in the 128-d HNSW build (default: 1M)")
     args = ap.parse_args(argv)
 
     import torch
@@ -206,8 +408,10 @@ def main(argv=None) -> int:
     _phase("build", f"{time.perf_counter() - t0:.2f} s "
            f"(nvcc {_build.build_seconds:.2f} s); {' | '.join(ptxas)}")
 
-    # -- 3. kernel vs plain ----------------------------------------------
-    max_err, ms, plain_ms = phase_kernel(torch, tsk, dev)
+    # -- 3. kernels vs plain ---------------------------------------------
+    records = phase_kernels(torch, tsk, dev)
+    launches = Launches(tsk)
+    nq = N_BLOCKS * BLOCK
 
     # -- 4. ScanIndex, bucket_pack, 1M x 128 -------------------------------
     t0 = time.perf_counter()
@@ -216,72 +420,97 @@ def main(argv=None) -> int:
     pts = torch.from_numpy(data[:N_POINTS]).to(dev)
     queries = torch.from_numpy(data[N_POINTS:]).to(dev)
     del data
-    data_s = time.perf_counter() - t0
-    nq = N_BLOCKS * BLOCK
+    _phase("data", f"{N_POINTS + N_QUERIES}x{DIM} clustered, "
+           f"{time.perf_counter() - t0:.1f} s")
     gt = idt.BruteForce(pts).search_batch(queries[:nq], K)[1].cpu()
-
-    tsk.launches = 0   # count only the main path from here on
     scan = idt.ScanIndex(pts)
-    d, i = scan.search_batch(queries, **SCAN_KW)
-    _check_results(torch, d, i, N_QUERIES, "scan")
-    recs = _recall_blocks(i[:nq].cpu(), gt)
-    t = _wall_s(torch, lambda: scan.search_batch(queries, **SCAN_KW))
-    scan_launches = tsk.launches
-    _phase("scan", f"ScanIndex bucket_pack {N_POINTS}x{DIM}, batch "
-           f"{N_QUERIES}: {N_QUERIES / t:.1f} qps ({t * 1e3:.2f} ms/batch), "
-           f"recall@10 blocks {[round(r, 4) for r in recs]} "
-           f"(data {data_s:.1f} s)")
-    if min(recs) < RECALL_FLOOR:
-        raise AssertionError(f"scan recall {min(recs)} < {RECALL_FLOOR}")
+    _scan(torch, launches, "scan", scan, queries, gt, SCAN_KW)
+    launches.need("scan", ["fused_scan_bucket_int_packed"])
     del scan
 
-    # -- 5. HNSW build + search ------------------------------------------
+    # -- 5. HNSW build + search, 1M x 128 ----------------------------------
     bn = min(args.build_n, N_POINTS)
     cfg = idt.Config(seed=3, m=32, wave_size=4096, ef_search=50)
-    marks = {}
-
-    def progress(done, total, phase):
-        step = done * 10 // total
-        if step not in marks:
-            marks[step] = time.perf_counter()
-            print(f"  build {done}/{total} ({phase}) at "
-                  f"{marks[step] - t0:.1f} s", file=sys.stderr, flush=True)
-
-    before = tsk.launches
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    index, _ = idt.Hnsw.build(pts[:bn], cfg, progress=progress)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    build_launches = tsk.launches - before
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    gt = idt.BruteForce(index.points).search_batch(queries[:nq], K)[1].cpu()
-    d, p = index.search_batch(queries[:nq], k=K, ef=50)
-    _check_results(torch, d, p, nq, "hnsw")
-    recs = _recall_blocks(p.cpu(), gt)
-    t = _wall_s(torch, lambda: index.search_batch(queries[:BLOCK], k=K,
-                                                  ef=50))
+    (index, _), build_s, peak = _build_path(
+        torch, launches, "hnsw",
+        lambda progress: idt.Hnsw.build(pts[:bn], cfg, progress=progress))
+    launches.need("hnsw", ["fused_scan_bucket_int_packed"])
+    recs, t = _search_path(torch, idt, launches, "hnsw", index, queries)
     _phase("hnsw", f"build {bn}x{DIM} m=32 wave 4096: {build_s:.1f} s "
-           f"({bn / build_s:.1f} pts/s), peak memory {peak_gib:.2f} GiB, "
+           f"({bn / build_s:.1f} pts/s), peak memory {peak:.2f} GiB, "
            f"reverse drops {index.reverse_drops}; search ef=50 batch {BLOCK}: "
            f"{BLOCK / t:.1f} qps, recall@10 blocks "
            f"{[round(r, 4) for r in recs]}")
-    if min(recs) < RECALL_FLOOR:
-        raise AssertionError(f"hnsw recall {min(recs)} < {RECALL_FLOOR}")
+    _check_recall(recs, "hnsw")
+    del index, pts, queries
+    torch.cuda.empty_cache()
 
-    # -- 6. the main path ran through the kernel --------------------------
-    _phase("launches", f"packed-scan kernel: {scan_launches} in the scan "
-           f"phase (one per batch, timed repeats included), "
-           f"{build_launches} in the build phase")
-    if scan_launches < 1 or build_launches < 1:
-        raise AssertionError("the main path did not launch the kernel")
+    # -- 6. ScanIndex at 300-d: bucket_pack -> K3, cosine bucket / topt ----
+    t0 = time.perf_counter()
+    data = synthetic_clustered(N_POINTS + N_QUERIES, DIM300,
+                               n_clusters=10000, seed=5)
+    pts = torch.from_numpy(data[:N_POINTS]).to(dev)
+    queries = torch.from_numpy(data[N_POINTS:]).to(dev)
+    del data
+    _phase("data", f"{N_POINTS + N_QUERIES}x{DIM300} clustered, "
+           f"{time.perf_counter() - t0:.1f} s")
+    gt = idt.BruteForce(pts).search_batch(queries[:nq], K)[1].cpu()
+    scan = idt.ScanIndex(pts)
+    _scan(torch, launches, "scan300", scan, queries, gt, SCAN_KW)
+    launches.need("scan300", ["fused_scan_bucket_int"],
+                  absent=["fused_scan_bucket_int_packed"])
+    del scan
+    gt = idt.BruteForce(pts, "cosine").search_batch(queries[:nq], K)[1].cpu()
+    scan = idt.ScanIndex(pts, metric="cosine")
+    _scan(torch, launches, "scan300 cosine bucket", scan, queries, gt,
+          dict(k=K, fused="bucket", ef=32))
+    launches.need("scan300 cosine bucket", ["fused_scan_bucket"])
+    _scan(torch, launches, "scan300 cosine topt", scan, queries, gt,
+          dict(k=K, fused="topt", ef=32))
+    launches.need("scan300 cosine topt", ["fused_scan_topt"])
+    del scan
+    torch.cuda.empty_cache()
 
-    print(json.dumps({"kernels": [{
-        "name": "fused_scan_bucket_int_packed", "route": "cuda",
-        "source": KERNEL_SRC, "replaces": KERNEL_REPLACES,
-        "launches": scan_launches + build_launches, "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms}]}), flush=True)
+    # -- 7. HnswMap build + search, 1M x 300 (K2 in every wave) ------------
+    cfg = idt.Config(seed=5, m=32, wave_size=4096, ef_search=50)
+    langs = ("en", "fr", "it")
+    values = [f"{langs[i % 3]}word{i}_{langs[i % 3]}"
+              for i in range(N_POINTS)]
+    index, build_s, peak = _build_path(
+        torch, launches, "hnsw300",
+        lambda progress: idt.HnswMap.build(pts, values, cfg,
+                                           progress=progress))
+    launches.need("hnsw300", ["fused_scan_bucket"],
+                  absent=["fused_scan_bucket_int_packed"])
+    recs, t = _search_path(torch, idt, launches, "hnsw300", index, queries)
+    hits = list(index.search(queries[0], idt.Search()))
+    if not hits or hits[0].value != index.values[hits[0].pid]:
+        raise AssertionError("hnsw300: the Search iterator gave no value")
+    _phase("hnsw300", f"HnswMap.build {N_POINTS}x{DIM300} m=32 wave 4096: "
+           f"{build_s:.1f} s ({N_POINTS / build_s:.1f} pts/s), peak memory "
+           f"{peak:.2f} GiB, reverse drops {index.reverse_drops}; search "
+           f"ef=50 batch {BLOCK}: {BLOCK / t:.1f} qps, recall@10 blocks "
+           f"{[round(r, 4) for r in recs]}; search -> {len(hits)} hits, "
+           f"first {hits[0].value!r} at {hits[0].distance:.4f}")
+    _check_recall(recs, "hnsw300")
+
+    # -- 8. the paths ran through every kernel -----------------------------
+    _phase("launches", "; ".join(
+        f"{path}: { {k: v for k, v in c.items() if v} }"
+        for path, c in launches.paths.items()))
+    out = []
+    for kernel, (source, replaces) in KERNELS.items():
+        rec = records[kernel]
+        if launches.total(kernel) < 1:
+            raise AssertionError(f"no path launched {kernel}")
+        out.append({
+            "name": kernel, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches.total(kernel),
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": None,
+            "case": rec["case"]})
+    print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)
     return 0

@@ -1,14 +1,16 @@
 """instant-distance-tpu on PyTorch: HNSW build and search on one NVIDIA GPU.
 
 A port of ``instant_distance_tpu`` (JAX/XLA/Pallas) to PyTorch, with the
-packed-key int8 scan kernel written by hand in CUDA for Hopper
-(``csrc/scan_kernel.cu``).  The JAX package stays the reference: the
-port keeps its public names, arguments and results, and its tests hold
-each module against the JAX function on the same inputs.
+int8 scan kernels written by hand in CUDA for Hopper (``csrc/``).  The
+JAX package stays the reference: the port keeps its public names,
+arguments and results, and its tests hold each module against the JAX
+function on the same inputs.  It imports nothing of the JAX package.
 
 Every index object lives on the device of the tensors it was built from
-(``index.device``); numpy inputs go to the ``device`` argument, CPU by
-default.  On CPU tensors the scan kernel runs its plain torch version.
+(``index.device``); numpy inputs go to the ``device`` argument, the CUDA
+card by default (without a card they raise: pass ``device="cpu"`` or
+CPU tensors to run on the CPU).  On CPU tensors the scan kernels run
+their plain torch versions.
 """
 
 import torch

@@ -26,29 +26,26 @@
 // What the design does about it: one block owns 64 queries x 64 output
 // columns and keeps their running minimum in registers across the lsub
 // slabs (the slab form of the TPU kernel), so the [B, N] dot tile never
-// reaches memory and each query writes N/lsub keys.  Query and code tiles
-// are staged in shared memory with four consecutive d packed into one
-// 32-bit word, and each thread runs a 4 x 4 register tile of __dp4a
-// (four int8 multiply-adds per instruction).  Tensor-core int8
-// (mma.sync / wgmma) and TMA staging are later work.
+// reaches memory and each query writes N/lsub keys.  The dot itself is
+// the __dp4a tile of dp4a_tile.cuh, 4 x 4 registers a thread.
+// Tensor-core int8 (mma.sync / wgmma) and TMA staging are later work.
 
 #include <climits>
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "dp4a_tile.cuh"
+
 namespace {
 
-constexpr int kBQ = 64;                  // queries per block
-constexpr int kBL = 64;                  // output columns per block
-constexpr int kDK = 32;                  // d values per shared-memory stage
-constexpr int kThreads = 256;
-constexpr int kTQ = 4;                   // queries per thread
-constexpr int kTL = 4;                   // output columns per thread
-constexpr int kQWords = kDK / 4 + 1;     // padded query-tile row, in words
+using idt::DotTiles;
+using idt::kBL;
+using idt::kThreads;
+using idt::kTL;
 
-static_assert(kBQ == 16 * kTQ && kBL == 16 * kTL, "16 x 16 thread grid");
-static_assert(kThreads % kBL == 0, "loader owns one column per thread");
+constexpr int kTQ = 4;                   // queries per thread: 64 per block
+constexpr int kBQ = 16 * kTQ;
 
 __global__ void __launch_bounds__(kThreads)
 packed_scan_kernel(const int8_t* __restrict__ qc,
@@ -56,10 +53,7 @@ packed_scan_kernel(const int8_t* __restrict__ qc,
                    const int8_t* __restrict__ codes_t,
                    int32_t* __restrict__ od,
                    int b, int d, int n, int lsub, int cb) {
-  __shared__ int32_t q_tile[kBQ * kQWords];
-  __shared__ int32_t c_tile[(kDK / 4) * kBL];
-  int8_t* q_bytes = reinterpret_cast<int8_t*>(q_tile);
-  int8_t* c_bytes = reinterpret_cast<int8_t*>(c_tile);
+  __shared__ DotTiles<kTQ> sm;
 
   const int ct = cb / lsub;
   const int ncol = n / lsub;
@@ -70,11 +64,9 @@ packed_scan_kernel(const int8_t* __restrict__ qc,
   const int o0 = blockIdx.x * kBL;
 
   // code-tile loader: this thread's column of the tile, slab 0
-  const int lj = tid % kBL;
-  const int lo = o0 + lj;
+  const int lo = o0 + tid % kBL;
   const bool l_ok = lo < ncol;
-  const long long l_base =
-      l_ok ? static_cast<long long>(lo / ct) * cb + lo % ct : 0;
+  const long long l_base = l_ok ? idt::slab0_point(lo, ct, cb) : 0;
 
   // epilogue: this thread's output columns, slab 0
   long long e_base[kTL];
@@ -83,7 +75,7 @@ packed_scan_kernel(const int8_t* __restrict__ qc,
   for (int j = 0; j < kTL; ++j) {
     const int o = o0 + tx + 16 * j;
     e_ok[j] = o < ncol;
-    e_base[j] = e_ok[j] ? static_cast<long long>(o / ct) * cb + o % ct : 0;
+    e_base[j] = e_ok[j] ? idt::slab0_point(o, ct, cb) : 0;
   }
 
   int32_t best[kTQ][kTL];
@@ -95,46 +87,8 @@ packed_scan_kernel(const int8_t* __restrict__ qc,
   for (int t = 0; t < lsub; ++t) {
     const long long slab = static_cast<long long>(t) * ct;
     int32_t acc[kTQ][kTL];
-#pragma unroll
-    for (int i = 0; i < kTQ; ++i)
-#pragma unroll
-      for (int j = 0; j < kTL; ++j) acc[i][j] = 0;
-
-    for (int d0 = 0; d0 < d; d0 += kDK) {
-      // query tile [kBQ, kDK], zero past the batch and past D
-      for (int e = tid; e < kBQ * kDK; e += kThreads) {
-        const int r = e / kDK;
-        const int dd = e % kDK;
-        const int q = q0 + r;
-        const int dg = d0 + dd;
-        q_bytes[r * kQWords * 4 + dd] =
-            (q < b && dg < d) ? qc[static_cast<long long>(q) * d + dg] : 0;
-      }
-      // code tile [kDK, kBL], stored as [kDK/4][kBL] words of 4 d each
-      for (int dd = tid / kBL; dd < kDK; dd += kThreads / kBL) {
-        const int dg = d0 + dd;
-        c_bytes[((dd / 4) * kBL + lj) * 4 + dd % 4] =
-            (l_ok && dg < d)
-                ? codes_t[static_cast<long long>(dg) * n + l_base + slab]
-                : 0;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kw = 0; kw < kDK / 4; ++kw) {
-        int32_t a[kTQ];
-        int32_t c[kTL];
-#pragma unroll
-        for (int i = 0; i < kTQ; ++i) a[i] = q_tile[(ty + 16 * i) * kQWords + kw];
-#pragma unroll
-        for (int j = 0; j < kTL; ++j) c[j] = c_tile[kw * kBL + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < kTQ; ++i)
-#pragma unroll
-          for (int j = 0; j < kTL; ++j) acc[i][j] = __dp4a(a[i], c[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-
+    idt::dot_tile<kTQ>(qc, codes_t, b, d, n, q0, l_ok, l_base + slab, sm,
+                       acc);
 #pragma unroll
     for (int j = 0; j < kTL; ++j) {
       if (!e_ok[j]) continue;

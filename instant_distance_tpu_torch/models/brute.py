@@ -21,7 +21,8 @@ _I32MAX = np.iinfo(np.int32).max
 
 
 class BruteForce:
-    """Exact k-NN index over a fixed point set, on ``points``' device."""
+    """Exact k-NN index over a fixed point set, on ``points``' device
+    (numpy input: ``device``, the CUDA card by default)."""
 
     def __init__(self, points, metric="sqeuclidean", chunk: int = 16384,
                  device=None):

@@ -123,7 +123,8 @@ class Hnsw:
               progress=None, device=None) -> tuple["Hnsw", np.ndarray]:
         """Build the index; returns (index, ids) where ids maps the
         original point order to PointIds.  Builds on ``points``' device
-        when it is a tensor, else on ``device`` (CPU by default)."""
+        when it is a tensor, else on ``device`` (the CUDA card by
+        default; without one it raises)."""
         config = config or Config()
         if len(np.shape(points)) != 2:
             raise ValueError(f"points must be a [N, D] 2-D array, got "

@@ -1,19 +1,25 @@
 """ScanIndex: int8 exhaustive scan + exact rerank (port of
 ``instant_distance_tpu/models/scan.py``).
 
-Two search paths, as in the JAX package:
+The search paths of the JAX package:
 
-* ``fused="bucket_pack"``: the packed-key scan kernel
-  (``ops/scan_kernel.py``, CUDA on the GPU) scores every point and keeps
-  one key per ``lsub``-wide stride group; the exact top-ef of those keys
-  is reranked with exact f32 distances.
+* ``fused=...``: one of the int8 scan kernels (``ops/scan_kernel.py``,
+  CUDA on the GPU) scores every point and keeps one candidate per
+  ``lsub``-wide stride group; the exact top-ef of those is reranked with
+  exact f32 distances.  ``"bucket_pack"`` runs the packed-key kernel K1,
+  ``"bucket_int"`` the shared-scale int kernel K3 (L2 only), ``"bucket"``
+  (or ``True``) the per-point-scale f32 kernel K2 and ``"topt"`` K5,
+  K2's minima cut to the ``topt`` best of each ``cb`` block in the
+  kernel.  dot/cosine requests for the int kernels run ``"bucket"``,
+  and ``"bucket_pack"`` runs ``"bucket_int"`` where packed keys could
+  overflow (D * lsub > 16384), as in the JAX package.
 * the default streamed scan: per-point-scale int8 products in column
   chunks with a running top-ef merge, then the same rerank.
 
 Candidate selection is exact ``torch.topk`` where the JAX package used
 ``approx_min_k`` (exact on its CPU reference, approximate on the TPU).
-Other ``fused`` modes need kernels K2, K3 and K5, and ``sel_group`` /
-``sel_kgroup`` the grouped selection; both wait (ROADMAP.md §1-2).
+``sel_group`` / ``sel_kgroup``, the grouped selection of
+``"bucket_pack"``, waits (ROADMAP.md §1 item 3).
 """
 
 from __future__ import annotations
@@ -26,9 +32,12 @@ import torch
 from ..config import Config
 from ..ops.distance import resolve, torch_dtype
 from ..ops.packed import quantize_points
-from ..ops.scan_kernel import (PACK_OFFSET, decode_keys,
-                               fused_scan_bucket_int_packed, int8_matmul,
-                               pack_operands, pack_w2, quantize_batch)
+from ..ops.scan_kernel import (INT_RANK_LIMIT, PACK_OFFSET,
+                               bucket_operands, bucket_queries, decode_keys,
+                               fused_scan_bucket, fused_scan_bucket_int,
+                               fused_scan_bucket_int_packed, fused_scan_topt,
+                               int8_matmul, pack_operands, pack_w2,
+                               quantize_batch)
 from ..ops.sort import sort2
 from ..utils.convert import as_tensor
 
@@ -127,6 +136,11 @@ def _scan_search(queries, codes, scales, norms, points, eligible, *,
     return rerank_exact(queries, points, bi, resolve(metric_name), k)
 
 
+def _padded(eligible, npad: int):
+    """Eligibility [N] padded with False to the operands' Npad."""
+    return torch.nn.functional.pad(eligible, (0, npad - eligible.shape[0]))
+
+
 def _fused_int_packed_search(queries, codes_t, norms_r, sg, points,
                              eligible, *, ef, k, lsub, cb, rerank):
     """Packed-key scan + exact top-ef + rerank (the default selection
@@ -135,10 +149,8 @@ def _fused_int_packed_search(queries, codes_t, norms_r, sg, points,
     d = queries.shape[1]
     qc, qs = quantize_batch(queries)
     denom = 2.0 * qs * sg
-    el = None
-    if eligible is not None:
-        npad = norms_r.shape[1] - eligible.shape[0]
-        el = torch.nn.functional.pad(eligible, (0, npad))[None, :]
+    el = (None if eligible is None
+          else _padded(eligible, norms_r.shape[1])[None, :])
     w2 = pack_w2(norms_r, denom, el, lsub=lsub, cb=cb, d=d)
     od = fused_scan_bucket_int_packed(qc, w2, codes_t, lsub=lsub, cb=cb)
     keys, nidx = torch.topk(od, min(ef, od.shape[1]), dim=1, largest=False)
@@ -154,12 +166,83 @@ def _fused_int_packed_search(queries, codes_t, norms_r, sg, points,
     return rerank_exact(queries, points, bi, resolve("sqeuclidean"), k)
 
 
+def _int32_saturating(x):
+    """f32 -> int32 as XLA converts: values past the int32 range take its
+    ends, NaN gives 0 (a plain ``.to(torch.int32)`` leaves them
+    undefined)."""
+    y = torch.nan_to_num(x, nan=0.0).clamp(-2.0**31, 2.0**31 - 128)
+    return torch.where(x >= 2.0**31, _I32MAX, y.to(torch.int32))
+
+
+def _fused_int_search(queries, codes_t, norms_r, sg, points, eligible, *,
+                      ef, k, lsub, cb, rerank):
+    """Shared-scale int-epilogue scan (K3) + exact top-ef + rerank
+    (``_fused_int_search_jit``, models/scan.py:197-231 of the JAX
+    package): queries share ONE scale, so a point's rank weight
+    ``w = round(|p_hat|^2 / (2 qs sg))`` serves every query."""
+    big = _I32MAX // 2
+    qc, qs = quantize_batch(queries)
+    denom = 2.0 * qs * sg
+    w = torch.where(torch.isfinite(norms_r),
+                    _int32_saturating(torch.round(norms_r / denom)), big)
+    if eligible is not None:
+        w = torch.where(_padded(eligible, norms_r.shape[1])[None, :], w, big)
+    od, oi = fused_scan_bucket_int(qc, w, codes_t, lsub=lsub, cb=cb)
+    # as the JAX package selects: on the ranks converted to f32
+    md, nidx = torch.topk(od.float(), min(ef, od.shape[1]), dim=1,
+                          largest=False)
+    bi = torch.where(md < INT_RANK_LIMIT, oi.gather(1, nidx), -1)
+    if not rerank:
+        qn2 = (queries * queries).sum(1, keepdim=True)
+        bd = torch.where(bi >= 0, md * denom + qn2, torch.inf)
+        bd, bi = sort2(bd, bi)
+        return bd[:, :k], bi[:, :k]
+    return rerank_exact(queries, points, bi, resolve("sqeuclidean"), k)
+
+
+def _fused_search(queries, codes_t, scales_r, norms_r, points, eligible, *,
+                  metric_name, ef, k, lsub, topt, cb, rerank, mode):
+    """Per-point-scale scan, K2 (``mode="bucket"``) or K5 (``"topt"``),
+    + exact top-ef + rerank (``_fused_search_jit``, models/scan.py:346-389
+    of the JAX package)."""
+    is_dot = metric_name in ("dot", "cosine")
+    qc, qs = bucket_queries(queries, metric_name)
+    if eligible is not None:
+        norms_r = torch.where(_padded(eligible, norms_r.shape[1])[None, :],
+                              norms_r, torch.inf)
+    if mode == "bucket":
+        od, oi = fused_scan_bucket(qc, qs, codes_t, scales_r,
+                                   norms_r, lsub=lsub, cb=cb, is_dot=is_dot)
+    else:
+        od, oi = fused_scan_topt(qc, qs, codes_t, scales_r,
+                                 norms_r, lsub=lsub, topt=topt, cb=cb,
+                                 is_dot=is_dot)
+    md, nidx = torch.topk(od, min(ef, od.shape[1]), dim=1, largest=False)
+    bi = torch.where(torch.isfinite(md), oi.gather(1, nidx), -1)
+    if not rerank:
+        bd, bi = sort2(md, bi)
+        bd, bi = bd[:, :k], bi[:, :k]
+        # restore the per-query constants: sq-L2 drops |q|^2, cosine is
+        # -cos against the metric's 1 - cos, dot is exact
+        if metric_name == "cosine":
+            bd = torch.where(torch.isfinite(bd), bd + 1.0, bd)
+        elif not is_dot:
+            qn2 = (queries * queries).sum(1, keepdim=True)
+            bd = torch.where(torch.isfinite(bd), bd + qn2, bd)
+        return bd, bi
+    return rerank_exact(queries, points, bi, resolve(metric_name), k)
+
+
+#: ``search_batch``'s ``fused`` modes.
+_FUSED_MODES = ("bucket", "bucket_int", "bucket_pack", "topt")
+
+
 class ScanIndex:
     """Quantized exhaustive-scan index (int8 scoring + exact rerank).
 
     Ids are the input order.  Supports values, tombstones and exact
     result filters.  Lives on ``points``' device (numpy input: the
-    ``device`` argument, CPU by default).
+    ``device`` argument, the CUDA card by default).
     """
 
     _FUSED_CB = 4096
@@ -184,6 +267,7 @@ class ScanIndex:
         self.norms = (deq * deq).sum(1)                  # |p_hat|^2 [N]
         self.values = None if values is None else list(values)
         self._alive = None
+        self._fused = {}
         self._fused_int = {}
         self.config = Config(metric=metric)
 
@@ -230,6 +314,15 @@ class ScanIndex:
             eligible = fm if eligible is None else (eligible & fm)
         return eligible
 
+    def _fused_arrays(self, cb: int, variant: str = "l2"):
+        """Operands of K2/K5 (:func:`bucket_operands`, ``variant`` l2,
+        dot or cosine), cached per padded length and variant."""
+        key = (cb, variant)
+        if key not in self._fused:
+            self._fused[key] = bucket_operands(self.codes, self.scales,
+                                               self.norms, cb, variant)
+        return self._fused[key]
+
     def _fused_int_arrays(self, cb: int):
         """Operands of the packed-key scan (:func:`pack_operands`),
         cached per padded length."""
@@ -239,17 +332,20 @@ class ScanIndex:
 
     def search_batch(self, queries, k: int = 10, ef: Optional[int] = None,
                      rerank: bool = True, filter_mask=None, tile: int = 0,
-                     fused=False, lsub: int = 16, cb: int = 0,
-                     inner: int = 1, sel_group: int = 0,
+                     fused=False, topt: int = 8, lsub: int = 16,
+                     cb: int = 0, inner: int = 1, sel_group: int = 0,
                      sel_kgroup: int = 0):
         """[B, D] -> (dists [B, k], ids [B, k]); ids = input order.
 
-        Arguments as in the JAX package.  ``fused="bucket_pack"`` runs
-        the packed-key kernel; ``inner`` only pads the point axis to
-        ``cb * inner`` (the TPU grid's sub-chunking).  The JAX package's
-        TPU tiling and approximate-selection knobs (``qb``, ``slab``,
-        ``topt``, ``approx_topk``, ``sel_target``) have no counterpart:
-        the port has one kernel body and selects exactly.
+        Arguments as in the JAX package.  ``fused`` picks the scan
+        kernel (module docstring), ``topt`` is K5's candidates per
+        ``cb`` block, ``lsub`` the stride-group width (16 becomes 32
+        for the bucket modes at the default cb, as in the JAX package);
+        ``inner`` only pads the point axis to ``cb * inner`` (the TPU
+        grid's sub-chunking).  The JAX package's TPU tiling and
+        approximate-selection knobs (``qb``, ``slab``, ``approx_topk``,
+        ``sel_target``) have no counterpart: the port has one kernel
+        body per mode and selects exactly.
         """
         queries = as_tensor(queries, self.device, torch.float32)
         if queries.dim() == 1:
@@ -269,19 +365,32 @@ class ScanIndex:
                 lsub = 32
             if mode == "bucket_pack" and queries.shape[1] * lsub > 16384:
                 mode = "bucket_int"  # packed keys would overflow
-            if mode != "bucket_pack":
-                raise NotImplementedError(
-                    f"fused={mode!r} needs a scan kernel not ported yet "
-                    "(K2 bucket, K3 bucket_int, K5 topt; ROADMAP.md §2)")
-            if sel_group > 1 or sel_kgroup > 1:
-                raise NotImplementedError(
-                    "sel_group/sel_kgroup grouped selection is not ported "
-                    "yet (ROADMAP.md §1 item 3)")
-            codes_t, norms_r, sg = self._fused_int_arrays(cb * inner)
-            d, i = _fused_int_packed_search(
-                queries, codes_t, norms_r, sg, self.points,
-                self._eligible(filter_mask), ef=ef, k=k, lsub=lsub, cb=cb,
-                rerank=rerank)
+            if mode not in _FUSED_MODES:
+                raise ValueError(f"fused must be True or one of "
+                                 f"{_FUSED_MODES}, got {fused!r}")
+            eligible = self._eligible(filter_mask)
+            if mode == "bucket_pack":
+                if sel_group > 1 or sel_kgroup > 1:
+                    raise NotImplementedError(
+                        "sel_group/sel_kgroup grouped selection is not "
+                        "ported yet (ROADMAP.md §1 item 3)")
+                codes_t, norms_r, sg = self._fused_int_arrays(cb * inner)
+                d, i = _fused_int_packed_search(
+                    queries, codes_t, norms_r, sg, self.points, eligible,
+                    ef=ef, k=k, lsub=lsub, cb=cb, rerank=rerank)
+            elif mode == "bucket_int":
+                codes_t, norms_r, sg = self._fused_int_arrays(cb * inner)
+                d, i = _fused_int_search(
+                    queries, codes_t, norms_r, sg, self.points, eligible,
+                    ef=ef, k=k, lsub=lsub, cb=cb, rerank=rerank)
+            else:
+                fm = "sqeuclidean" if is_l2 else metric_name
+                codes_t, scales_r, norms_r = self._fused_arrays(
+                    cb * inner, "l2" if is_l2 else fm)
+                d, i = _fused_search(
+                    queries, codes_t, scales_r, norms_r, self.points,
+                    eligible, metric_name=fm, ef=ef, k=k, lsub=lsub,
+                    topt=topt, cb=cb, rerank=rerank, mode=mode)
         else:
             d, i = _scan_search(
                 queries, self.codes, self.scales, self.norms, self.points,

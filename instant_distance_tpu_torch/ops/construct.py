@@ -4,9 +4,11 @@
 Points are inserted layer by layer in waves of doubling size (up to
 ``Config.wave_size``).  Each wave:
 
-1. finds its candidates with the packed-key int8 scan of the inserted
-   prefix (kernel K1, ``ops/scan_kernel.py``), exact top-pool keys, and
-   an exact f32 rerank (``search_select_core``);
+1. finds its candidates with an int8 scan of the inserted prefix and an
+   exact f32 rerank (``search_select_core``): the packed-key kernel K1
+   for L2 metrics with D * 64 <= 16384, the bucket kernel K2 (per-point
+   scales, f32 epilogue) for dot/cosine and wider points
+   (``ops/scan_kernel.py``), then the exact top pool;
 2. merges each point's nearest same-wave peers (the batched stand-in for
    sequential insertion order);
 3. selects forward neighbours (Alg. 3/4, ``ops/select.py``);
@@ -21,8 +23,8 @@ seed insert the same points in the same waves.  The adjacency is
 place.
 
 Not ported yet (each raises NotImplementedError; ROADMAP.md §1 item 5):
-beam and streamed-scan wave search, the K2 branch (dot/cosine metrics
-and D > 256), the exact-prefix hybrid, sampled scans with hop repair,
+beam and streamed-scan wave search (and so callable metrics), the
+exact-prefix hybrid, sampled scans with hop repair,
 ``extend_candidates``, checkpoints and ``extend_graph``.  The 16 GB-chip
 workarounds of the JAX build (split search/commit programs, lane-packed
 adjacency, ``dispatch_sync_every``, 4M-column scan chunks, 128-lane
@@ -35,8 +37,11 @@ import numpy as np
 import torch
 
 from ..config import Config, layer_sizes, resolve_seed
+from ..utils.convert import default_device
 from .distance import resolve, torch_dtype
-from .scan_kernel import (decode_keys, fused_scan_bucket_int_packed,
+from .packed import quantize_points
+from .scan_kernel import (bucket_operands, bucket_queries, decode_keys,
+                          fused_scan_bucket, fused_scan_bucket_int_packed,
                           pack_operands, pack_w2, quantize_batch)
 from . import select as sel_ops
 from .sort import argsort2, sort2
@@ -46,6 +51,10 @@ _I32MAX = np.iinfo(np.int32).max
 #: they cost ~1 us each when no profiler runs.
 _span = torch.profiler.record_function
 
+#: Bucket (K2) construction scan: point block and stride-group width,
+#: as in the JAX package.
+_FUSED_CB = 4096
+_FUSED_LSUB = 32
 #: Packed-key construction scan: point block and stride-group width
 #: (cb/lsub = 128 output lanes), as in the JAX package.
 _FUSED_PACK_CB = 8192
@@ -114,17 +123,12 @@ def _bucket(w: int, cap: int) -> int:
     return min(b, cap) if b >= w else cap
 
 
-def _check_supported(cfg, metric_name, search_mode: str, n: int,
-                     d: int) -> None:
+def _check_supported(cfg, search_mode: str, n: int) -> None:
     todo = "is not ported yet (ROADMAP.md §1 item 5)"
     if search_mode != "scan_fused":
         raise NotImplementedError(
             f"construct_mode resolving to {search_mode!r} {todo}; only the "
             "scan_fused route runs")
-    if not _use_pack(metric_name, d):
-        raise NotImplementedError(
-            f"the {metric_name!r} / D={d} build needs kernel K2 "
-            "(fused_scan_bucket), which is not ported yet (ROADMAP.md §2)")
     if cfg.construct_exact_prefix:
         raise NotImplementedError(f"construct_exact_prefix {todo}")
     if cfg.construct_sample_cols is not None and cfg.construct_sample_cols < n:
@@ -133,6 +137,23 @@ def _check_supported(cfg, metric_name, search_mode: str, n: int,
         raise NotImplementedError(f"construct_hop_repair {todo}")
     if cfg.heuristic is not None and cfg.heuristic.extend_candidates:
         raise NotImplementedError(f"Heuristic(extend_candidates=True) {todo}")
+
+
+def _quantize_for_scan(points, metric_name):
+    """Wave-search operands over the build's points (pid order), in the
+    JAX ``_quantize_for_scan(fused=True)``'s order ``(codes_t, scales,
+    norms_r)``: for the packed-key kernel ONE global scale ``sg``
+    (:func:`pack_operands`), for K2 per-point scales [1, Npad] with the
+    metric's norms (:func:`bucket_operands`)."""
+    if _use_pack(metric_name, points.shape[1]):
+        codes_t, norms_r, sg = pack_operands(points, _FUSED_PACK_CB)
+        return codes_t, sg, norms_r
+    codes, scales = quantize_points(points)
+    deq = codes.float() * scales[:, None]
+    variant = ("l2" if metric_name in ("sqeuclidean", "euclidean")
+               else metric_name)
+    return bucket_operands(codes, scales, (deq * deq).sum(1), _FUSED_CB,
+                           variant)
 
 
 # ---------------------------------------------------------------------------
@@ -216,32 +237,59 @@ def _dedup_sorted(cd, cp):
     return torch.where(dup, torch.inf, cd), torch.where(dup, -1, cp)
 
 
-def search_select_core(wave_pids, filled: int, points, codes_t, norms_r, sg,
-                       *, metric_name, efc: int, m0: int, heuristic,
-                       pd_dtype="bfloat16"):
-    """Wave search + forward selection (lib.rs:447-473): each wave
-    point's selected forward neighbours [W, m0], -1/inf for padded
-    lanes.  ``filled`` is the first pid of the wave: pids below it are
-    the inserted prefix the scan may return.  ``codes_t, norms_r, sg``
-    are :func:`pack_operands` of ``points``."""
-    metric = resolve(metric_name)
-    w = wave_pids.shape[0]
-    wvalid = wave_pids >= 0
-    q = points[wave_pids.clamp(min=0)]                          # [W, D]
-    d = q.shape[1]
-
-    # --- packed-key int8 scan of the prefix, exact top-pool keys -------
+def _scan_pack(q, filled: int, codes_t, sg, norms_r, efc: int):
+    """K1 wave search: packed keys of the prefix, exact top-efc keys ->
+    candidate pids [W, <= efc], -1 for groups with no eligible point."""
     lsub, cb = _FUSED_PACK_LSUB, _FUSED_PACK_CB
     qc, qs = quantize_batch(q)
     denom = 2.0 * qs * sg
     col = torch.arange(norms_r.shape[1], device=q.device)[None, :]
+    w2 = pack_w2(norms_r, denom, col < filled, lsub=lsub, cb=cb,
+                 d=q.shape[1])
+    od = fused_scan_bucket_int_packed(qc, w2, codes_t, lsub=lsub, cb=cb)
+    keys, nidx = torch.topk(od, min(efc, od.shape[1]), dim=1,
+                            largest=False, sorted=False)
+    return decode_keys(keys, nidx, lsub=lsub, cb=cb)
+
+
+def _scan_bucket(q, filled: int, codes_t, scales_r, norms_r, efc: int,
+                 metric_name):
+    """K2 wave search (JAX construct.py:415-451): per-query int8 codes
+    (cosine divides the scale by |q|), non-prefix columns +inf, exact
+    top-efc group minima -> candidate pids [W, <= efc], -1 where the
+    minimum is not finite."""
+    col = torch.arange(norms_r.shape[1], device=q.device)[None, :]
+    nm = torch.where(col < filled, norms_r, torch.inf)
+    qc, qs = bucket_queries(q, metric_name)
+    od, oi = fused_scan_bucket(qc, qs, codes_t, scales_r, nm,
+                               lsub=_FUSED_LSUB, cb=_FUSED_CB,
+                               is_dot=metric_name in ("dot", "cosine"))
+    md, nidx = torch.topk(od, min(efc, od.shape[1]), dim=1, largest=False,
+                          sorted=False)
+    return torch.where(torch.isfinite(md), oi.gather(1, nidx), -1)
+
+
+def search_select_core(wave_pids, filled: int, points, codes_t, scales,
+                       norms_r, *, metric_name, efc: int, m0: int,
+                       heuristic, pd_dtype="bfloat16"):
+    """Wave search + forward selection (lib.rs:447-473): each wave
+    point's selected forward neighbours [W, m0], -1/inf for padded
+    lanes.  ``filled`` is the first pid of the wave: pids below it are
+    the inserted prefix the scan may return.  ``codes_t, scales,
+    norms_r`` are :func:`_quantize_for_scan` of ``points``."""
+    metric = resolve(metric_name)
+    w = wave_pids.shape[0]
+    wvalid = wave_pids >= 0
+    q = points[wave_pids.clamp(min=0)]                          # [W, D]
+
+    # --- int8 scan of the prefix, exact top pool -----------------------
     with _span("build.scan"):
-        w2 = pack_w2(norms_r, denom, col < filled, lsub=lsub, cb=cb, d=d)
-        od = fused_scan_bucket_int_packed(qc, w2, codes_t, lsub=lsub, cb=cb)
-        k_sel = min(efc, od.shape[1])
-        keys, nidx = torch.topk(od, k_sel, dim=1, largest=False,
-                                sorted=False)
-    cand_p = decode_keys(keys, nidx, lsub=lsub, cb=cb)
+        if _use_pack(metric_name, q.shape[1]):
+            cand_p = _scan_pack(q, filled, codes_t, scales, norms_r, efc)
+        else:
+            cand_p = _scan_bucket(q, filled, codes_t, scales, norms_r, efc,
+                                  metric_name)
+    k_sel = cand_p.shape[1]
     if k_sel < efc:
         cand_p = torch.nn.functional.pad(cand_p, (0, efc - k_sel), value=-1)
     # exact rerank: selection runs on true distances
@@ -373,7 +421,8 @@ def build_graph(points, config: Config, progress=None,
     geometric layer sizing, seeded shuffle into pid order, per-layer
     insertion ranges (point 0 is the entry and never inserted) and
     post-layer truncated snapshots.  The build runs on ``points``'
-    device (a tensor) or on ``device`` (numpy input; CPU by default).
+    device (a tensor) or on ``device`` (numpy input; the CUDA card by
+    default, and without one it raises).
     """
     cfg = config
     metric_name = cfg.metric
@@ -381,7 +430,7 @@ def build_graph(points, config: Config, progress=None,
         dev = points.device
         pts_in = points.float()
     else:
-        dev = torch.device(device if device is not None else "cpu")
+        dev = default_device(device)
         pts_in = np.asarray(points, np.float32)
     n = pts_in.shape[0]
     m, m0 = cfg.m, cfg.m0
@@ -395,7 +444,7 @@ def build_graph(points, config: Config, progress=None,
         raise ValueError("point count must fit in int32")
 
     search_mode = _resolve_search_mode(cfg, metric_name)
-    _check_supported(cfg, metric_name, search_mode, n, pts_in.shape[1])
+    _check_supported(cfg, search_mode, n)
     heur = (None if cfg.heuristic is None else
             (cfg.heuristic.extend_candidates, cfg.heuristic.keep_pruned))
     pend_cap, rev_rounds = _rev_params(cfg, m0)
@@ -419,7 +468,7 @@ def build_graph(points, config: Config, progress=None,
     top = len(sizes) - 1
     ranges = [(top - i, max(c - s, 1), c) for i, (s, c) in enumerate(sizes)]
 
-    codes_t, norms_r, sg = pack_operands(pts, _FUSED_PACK_CB)
+    scan_ops = _quantize_for_scan(pts, metric_name)
     adj = torch.full((n + 1, m0), -1, dtype=torch.int32, device=dev)
     adjd = torch.full((n + 1, m0), torch.inf, device=dev,
                       dtype=torch_dtype(cfg.dist_cache_dtype))
@@ -433,7 +482,7 @@ def build_graph(points, config: Config, progress=None,
             wave = torch.as_tensor(wave, device=dev)
             with _span("build.search_select"):
                 sel_d, sel_p = search_select_core(
-                    wave, s, pts, codes_t, norms_r, sg,
+                    wave, s, pts, *scan_ops,
                     metric_name=metric_name, efc=efc, m0=m0,
                     heuristic=heur, pd_dtype=pd_dtype)
             with _span("build.commit"):

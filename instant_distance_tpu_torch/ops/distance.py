@@ -101,8 +101,13 @@ class Metric:
                              min=0.0)
             if self.name == "euclidean":
                 d2 = torch.sqrt(d2)
+        elif self.name == "dot":
+            d2 = -torch.bmm(p, p.transpose(1, 2))
         else:
-            d2 = self.fn(p[:, :, None, :], p[:, None, :, :])
+            # a batched matmul, not the [B, C, C, D] broadcast of the
+            # elementwise form (hundreds of GB at a 4096-point wave, 300-d)
+            pn = _normalize(p)
+            d2 = 1.0 - torch.bmm(pn, pn.transpose(1, 2))
         out_dtype = torch_dtype(out_dtype)
         return d2 if out_dtype is None else d2.to(out_dtype)
 

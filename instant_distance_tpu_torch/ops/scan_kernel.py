@@ -1,29 +1,37 @@
-"""Packed-key int8 scan (port of K1, ``fused_scan_bucket_int_packed`` in
-``instant_distance_tpu/ops/scan_kernel.py``), its operands and its key
-format.
+"""The int8 scan kernels (ports of K1, K2, K3 and K5 of
+``instant_distance_tpu/ops/scan_kernel.py``), their operands and the
+packed-key format.
 
-One int8 x int8 product of a query batch against every point, reduced in
-the same pass to one int32 key per ``lsub``-wide stride group:
+Each kernel multiplies a query batch of int8 codes by every point's int8
+codes and reduces the products in the same pass to one result per
+``lsub``-wide stride group: group o of a ``cb``-point block holds the
+points ``p = (o // ct) * cb + t * ct + o % ct`` for t < lsub, ct = cb // lsub.
 
-    key[b, o] = min_t ( w2[p] - dot(qc[b], codes_t[:, p]) * lsub ),
-    p = (o // ct) * cb + t * ct + o % ct,   ct = cb // lsub.
+* K1 :func:`fused_scan_bucket_int_packed`: packed int32 keys
+  ``min_t (w2[p] - dot * lsub)``.  ``w2`` (:func:`pack_w2`) packs the
+  point's rank weight with its slab index in the low bits, so the key
+  also says which point won (:func:`decode_keys`).  The wave build and
+  ``ScanIndex(fused="bucket_pack")`` take their operands from
+  :func:`pack_operands` and :func:`quantize_batch`.
+* K2 :func:`fused_scan_bucket`: per-point scales; f32 distances
+  ``norms - 2 * (qs * s) * dot`` (L2) or ``bias - (qs * s) * dot``
+  (dot/cosine), their min and argmin per group.
+* K3 :func:`fused_scan_bucket_int`: shared scales; int32 ranks
+  ``w - dot``, their min and argmin per group.
+* K5 :func:`fused_scan_topt`: K2's group minima, then the ``topt`` best
+  of each cb block per query.
 
-``w2`` (:func:`pack_w2`) packs the point's rank weight with its slab
-index ``t`` in the low bits, so the winning key also says which point of
-the group won: id = (o // ct) * cb + (key & (lsub - 1)) * ct + o % ct
-(:func:`decode_keys`).  Both callers, the wave build and
-``ScanIndex(fused="bucket_pack")``, take their operands from
-:func:`pack_operands` and :func:`quantize_batch`.
-
-:func:`fused_scan_bucket_int_packed` launches the hand-written CUDA
-kernel (``csrc/scan_kernel.cu``) on CUDA tensors and runs the plain
-torch version, :func:`fused_scan_bucket_int_packed_plain`, on CPU
-tensors.  The two agree bit for bit.
+Each wrapper launches its hand-written CUDA kernel (``csrc/``) on CUDA
+tensors and counts the launch in :data:`launches`; on CPU tensors it
+runs the plain torch version beside it (``*_plain``), which agrees with
+the kernel bit for bit.  It never falls back from one to the other.
 """
 
 from __future__ import annotations
 
 import torch
+
+_I32MAX = 2**31 - 1
 
 #: Packed-key constants, as in the JAX package: real keys lie in
 #: [2^23, 9*2^27), keys of groups with no eligible point at or above
@@ -32,8 +40,13 @@ PACK_INELIGIBLE = 3 << 29
 PACK_THRESH = 9 << 27
 PACK_OFFSET = 1 << 23
 
-#: Kernel launches so far (CUDA only; the plain version does not count).
-launches = 0
+#: Kernel launches so far, per wrapper (CUDA only; the plain versions do
+#: not count).
+launches = {"fused_scan_bucket_int_packed": 0, "fused_scan_bucket": 0,
+            "fused_scan_bucket_int": 0, "fused_scan_topt": 0}
+#: K3's ids are -1 where the group's rank is at least this (the JAX
+#: kernel's ``big // 2``, big = INT32_MAX // 2).
+INT_RANK_LIMIT = (_I32MAX // 2) // 2
 
 
 def pack_w2(norms_row, denom, eligible_row, *, lsub: int, cb: int,
@@ -75,6 +88,43 @@ def pack_operands(points, cb: int):
     return codes_t, norms_r, sg
 
 
+def bucket_operands(codes, scales, norms, cb: int, variant: str):
+    """Point-side operands of K2/K5 from per-point int8 ``codes`` [N, D],
+    their ``scales`` [N] and dequantized squared norms [N]: the codes
+    transposed to [D, Npad] int8, scales [1, Npad] and norms [1, Npad]
+    with +inf padding, Npad the next multiple of ``cb``.  ``variant``:
+
+    * ``"l2"``:     norms are |p_hat|^2 (dist = |p|^2 - 2 q.p);
+    * ``"dot"``:    norms are the 0 eligibility bias (dist = bias - q.p);
+    * ``"cosine"``: as "dot", with 1/|p_hat| folded into the scales.
+
+    Returns (codes_t, scales_r, norms_r)."""
+    n = codes.shape[0]
+    npad = (-n) % cb
+    codes_t = torch.nn.functional.pad(codes, (0, 0, 0, npad)).T.contiguous()
+    if variant == "cosine":
+        scales = scales * torch.rsqrt(torch.clamp(norms, min=1e-30))
+    scales_r = torch.nn.functional.pad(scales, (0, npad))[None, :]
+    base = norms if variant == "l2" else torch.zeros_like(norms)
+    norms_r = torch.nn.functional.pad(base, (0, npad),
+                                      value=torch.inf)[None, :]
+    return codes_t, scales_r, norms_r
+
+
+def bucket_queries(queries, metric_name: str):
+    """Query-side operands of K2/K5: per-query int8 codes [B, D] and
+    scales [B, 1] (the scheme of ``quantize_points``); cosine divides
+    each scale by |q|, so with :func:`bucket_operands`' cosine scales the
+    kernel's product is the cosine itself.  Returns (qc, qs)."""
+    amax = queries.abs().amax(dim=-1, keepdim=True)
+    qs = torch.clamp(amax, min=1e-30) / 127.0
+    qc = torch.clamp(torch.round(queries / qs), -127, 127).to(torch.int8)
+    if metric_name == "cosine":
+        qn = torch.sqrt((queries * queries).sum(1, keepdim=True))
+        qs = qs / torch.clamp(qn, min=1e-30)
+    return qc, qs
+
+
 def quantize_batch(queries):
     """Query-side operand: int8 codes [B, D] under ONE scale ``qs`` shared
     by the whole batch (the packed keys compare across queries' rows only
@@ -107,30 +157,87 @@ def int8_matmul(a, b):
     return a.to(torch.int32) @ b.to(torch.int32)
 
 
-def _check(qc, w2, codes_t, lsub: int, cb: int, groups: int) -> None:
-    if (qc.dtype != torch.int8 or codes_t.dtype != torch.int8
-            or w2.dtype != torch.int32):
-        raise TypeError(f"want int8/int32/int8 operands, got {qc.dtype}/"
-                        f"{w2.dtype}/{codes_t.dtype}")
+def _check_operands(qc, codes_t, **rows) -> None:
+    """Common operand checks: int8 ``qc [B, D]`` and ``codes_t [D, N]``,
+    and each of ``rows`` (name -> (tensor, dtype, "B" or "N")) a [B, 1]
+    or [1, N] tensor of its dtype."""
+    if qc.dtype != torch.int8 or codes_t.dtype != torch.int8:
+        raise TypeError(f"qc and codes_t must be int8, got {qc.dtype}/"
+                        f"{codes_t.dtype}")
     if qc.dim() != 2 or codes_t.dim() != 2:
         raise ValueError("qc must be [B, D] and codes_t [D, N]")
     b, d = qc.shape
     n = codes_t.shape[1]
-    if codes_t.shape[0] != d or tuple(w2.shape) != (1, n):
-        raise ValueError(f"shape mismatch: qc {tuple(qc.shape)}, w2 "
-                         f"{tuple(w2.shape)}, codes_t {tuple(codes_t.shape)}")
+    if codes_t.shape[0] != d:
+        raise ValueError(f"shape mismatch: qc {tuple(qc.shape)}, codes_t "
+                         f"{tuple(codes_t.shape)}")
+    for name, (t, dtype, axis) in rows.items():
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        want = (b, 1) if axis == "B" else (1, n)
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name} must be {list(want)}, got "
+                             f"{list(t.shape)}")
+
+
+def _check_blocks(n: int, lsub: int, cb: int) -> None:
+    if lsub < 1 or cb % lsub or n % cb:
+        raise ValueError(f"need lsub | cb | N, got lsub={lsub} cb={cb} N={n}")
+    if n >= 2**31:
+        raise ValueError("point ids must fit in int32")
+
+
+def _check(qc, w2, codes_t, lsub: int, cb: int, groups: int) -> None:
+    _check_operands(qc, codes_t, w2=(w2, torch.int32, "N"))
+    d = qc.shape[1]
     if lsub < 1 or lsub & (lsub - 1):
         raise ValueError(f"lsub must be a power of two, got {lsub}")
     if d * lsub > 16384:
         raise ValueError(f"D*lsub = {d * lsub} > 16384: packed keys could "
                          "overflow")
-    if cb % lsub or n % cb:
-        raise ValueError(f"need lsub | cb | N, got lsub={lsub} cb={cb} N={n}")
+    _check_blocks(codes_t.shape[1], lsub, cb)
     ct = cb // lsub
     if groups > 1 and (groups & (groups - 1) or ct % groups):
         raise ValueError(f"groups must be a power of two dividing "
                          f"cb/lsub = {ct}, got {groups}")
 
+
+def _on_card(tensors) -> bool:
+    """False when every operand lies on the CPU (the plain version
+    runs); True for contiguous operands on one CUDA device (the kernel
+    runs); anything else raises."""
+    if all(t.device.type == "cpu" for t in tensors):
+        return False
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("the operands must share one CUDA device (or all "
+                         f"be on the CPU), got "
+                         f"{[str(t.device) for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the scan kernels need contiguous operands")
+    return True
+
+
+def _launch(name: str, entry: str, dev, *args) -> None:
+    """Call the C launcher ``entry`` on ``dev``'s current stream, raise on
+    a launch error, and count the launch for wrapper ``name``."""
+    from ._build import check, library
+
+    lib = library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(lib, entry)(*args, stream)
+    check(lib, rc, name)
+    launches[name] += 1
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+# ---------------------------------------------------------------------------
+# K1: packed keys
+# ---------------------------------------------------------------------------
 
 def fused_scan_bucket_int_packed_plain(qc, w2, codes_t, *, lsub: int,
                                        cb: int, groups: int = 0):
@@ -166,36 +273,229 @@ def fused_scan_bucket_int_packed(qc, w2, codes_t, *, lsub: int = 32,
     CPU tensors take the plain version; CUDA tensors launch the kernel
     or raise.
     """
-    global launches
     tensors = (qc, w2, codes_t)
-    if all(t.device.type == "cpu" for t in tensors):
+    if not _on_card(tensors):
         return fused_scan_bucket_int_packed_plain(
             qc, w2, codes_t, lsub=lsub, cb=cb, groups=groups)
-    dev = qc.device
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError("qc, w2 and codes_t must share one CUDA device "
-                         f"(or all be on the CPU), got "
-                         f"{[str(t.device) for t in tensors]}")
     _check(qc, w2, codes_t, lsub, cb, groups)
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("the packed-scan kernel needs contiguous operands")
     b, d = qc.shape
     n = codes_t.shape[1]
     if b > 65535 * 64:
         raise ValueError(f"batch {b} exceeds the kernel grid")
+    dev = qc.device
     od = torch.empty((b, n // lsub), dtype=torch.int32, device=dev)
     og = (torch.empty((b, n // (lsub * groups)), dtype=torch.int32,
                       device=dev) if groups > 1 else None)
     if b and n:
-        from ._build import check, library
-
-        lib = library()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = lib.idt_packed_scan(
-                qc.data_ptr(), w2.data_ptr(), codes_t.data_ptr(),
-                od.data_ptr(), og.data_ptr() if og is not None else None,
-                b, d, n, lsub, cb, groups, stream)
-        check(lib, rc, "packed_scan_kernel")
-        launches += 1
+        _launch("fused_scan_bucket_int_packed", "idt_packed_scan", dev,
+                _ptr(qc), _ptr(w2), _ptr(codes_t), _ptr(od), _ptr(og),
+                b, d, n, lsub, cb, groups)
     return (od, og) if groups > 1 else od
+
+
+# ---------------------------------------------------------------------------
+# K2 / K3 / K5: group minima with their argmin
+# ---------------------------------------------------------------------------
+
+def _strided_min(val, lsub: int, cb: int):
+    """[B, N] values -> (min [B, N/lsub], point id of the min [B, N/lsub])
+    per stride group, block-major, as the JAX kernels reduce: slab by
+    slab, a later slab winning only on a strict ``<``; ``torch.minimum``
+    keeps a NaN, as ``jnp.minimum`` does."""
+    b, n = val.shape
+    ct = cb // lsub
+    v = val.view(b, n // cb, lsub, ct)
+    m = v[:, :, 0]
+    am = torch.zeros(m.shape, dtype=torch.int32, device=val.device)
+    for t in range(1, lsub):
+        blk = v[:, :, t]
+        am = torch.where(blk < m, t, am)
+        m = torch.minimum(m, blk)
+    first = torch.arange(0, n, cb, dtype=torch.int32,
+                         device=val.device)[None, :, None]
+    lane = torch.arange(ct, dtype=torch.int32, device=val.device)
+    ids = first + am * ct + lane
+    return m.reshape(b, -1), ids.reshape(b, -1)
+
+
+def _check_bucket(qc, qs, codes_t, scales, norms, lsub: int, cb: int):
+    _check_operands(qc, codes_t, qs=(qs, torch.float32, "B"),
+                    scales=(scales, torch.float32, "N"),
+                    norms=(norms, torch.float32, "N"))
+    _check_blocks(codes_t.shape[1], lsub, cb)
+
+
+def _check_int(qc, w, codes_t, lsub: int, cb: int):
+    _check_operands(qc, codes_t, w=(w, torch.int32, "N"))
+    _check_blocks(codes_t.shape[1], lsub, cb)
+
+
+def fused_scan_bucket_plain(qc, qs, codes_t, scales, norms, *, lsub: int,
+                            cb: int, is_dot: bool = False):
+    """Plain torch version of :func:`fused_scan_bucket`: the whole [B, N]
+    distance matrix in the kernel's order of operations, then the
+    strided min."""
+    _check_bucket(qc, qs, codes_t, scales, norms, lsub, cb)
+    prod = (qs * scales) * int8_matmul(qc, codes_t).float()
+    dist = norms - prod if is_dot else norms - 2.0 * prod
+    m, ids = _strided_min(dist, lsub, cb)
+    return m, torch.where(torch.isfinite(m), ids, -1)
+
+
+def fused_scan_bucket(qc, qs, codes_t, scales, norms, *, lsub: int = 16,
+                      cb: int = 4096, is_dot: bool = False):
+    """Fused scan, bucket-min form (kernel K2).
+
+    Args:
+      qc:      [B, D] int8 query codes, per-query scales.
+      qs:      [B, 1] f32 query scales (divided by |q| for cosine).
+      codes_t: [D, N] int8 point codes, per-point scales.
+      scales:  [1, N] f32 point scales (times 1/|p_hat| for cosine).
+      norms:   [1, N] f32: |p_hat|^2, or under ``is_dot`` the 0 bias;
+               +inf marks ineligible and padded points.
+    Returns ``(dists [B, N/lsub] f32, ids [B, N/lsub] int32)``, block-
+    major: per stride group, the min of ``norms - 2 * (qs * s) * dot``
+    (or ``norms - (qs * s) * dot`` under ``is_dot``) and the point id
+    that reaches it, -1 where the min is not finite.  Requires
+    lsub | cb | N.  The JAX kernel's ``inner`` sub-chunking does not
+    change the layout, so there is none here.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    or raise.
+    """
+    tensors = (qc, qs, codes_t, scales, norms)
+    if not _on_card(tensors):
+        return fused_scan_bucket_plain(qc, qs, codes_t, scales, norms,
+                                       lsub=lsub, cb=cb, is_dot=is_dot)
+    _check_bucket(qc, qs, codes_t, scales, norms, lsub, cb)
+    b, d = qc.shape
+    n = codes_t.shape[1]
+    if b > 65535 * 64:
+        raise ValueError(f"batch {b} exceeds the kernel grid")
+    dev = qc.device
+    od = torch.empty((b, n // lsub), dtype=torch.float32, device=dev)
+    oi = torch.empty((b, n // lsub), dtype=torch.int32, device=dev)
+    if b and n:
+        _launch("fused_scan_bucket", "idt_bucket_scan", dev, _ptr(qc),
+                _ptr(qs), _ptr(codes_t), _ptr(scales), _ptr(norms),
+                _ptr(od), _ptr(oi), b, d, n, lsub, cb, int(is_dot))
+    return od, oi
+
+
+def fused_scan_bucket_int_plain(qc, w, codes_t, *, lsub: int, cb: int):
+    """Plain torch version of :func:`fused_scan_bucket_int`: the whole
+    [B, N] rank matrix (int32, wrapping as XLA's), then the strided
+    min."""
+    _check_int(qc, w, codes_t, lsub, cb)
+    m, ids = _strided_min(w - int8_matmul(qc, codes_t), lsub, cb)
+    return m, torch.where(m < INT_RANK_LIMIT, ids, -1)
+
+
+def fused_scan_bucket_int(qc, w, codes_t, *, lsub: int = 32,
+                          cb: int = 4096):
+    """Int-epilogue fused scan (kernel K3).
+
+    Args:
+      qc:      [B, D] int8 query codes, ONE shared scale qs.
+      w:       [1, N] int32 ``round(|p_hat|^2 / (2 qs s))``, with
+               INT32_MAX // 2 marking ineligible and padded points.
+      codes_t: [D, N] int8 point codes, ONE shared scale s.
+    Returns ``(rank [B, N/lsub] int32, ids [B, N/lsub] int32)`` laid out
+    as :func:`fused_scan_bucket`'s: per stride group the min of
+    ``w - dot`` (two's-complement int32) and the point id reaching it,
+    -1 where the min is at least :data:`INT_RANK_LIMIT`.  Requires
+    lsub | cb | N.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    or raise.
+    """
+    tensors = (qc, w, codes_t)
+    if not _on_card(tensors):
+        return fused_scan_bucket_int_plain(qc, w, codes_t, lsub=lsub, cb=cb)
+    _check_int(qc, w, codes_t, lsub, cb)
+    b, d = qc.shape
+    n = codes_t.shape[1]
+    if b > 65535 * 64:
+        raise ValueError(f"batch {b} exceeds the kernel grid")
+    dev = qc.device
+    od = torch.empty((b, n // lsub), dtype=torch.int32, device=dev)
+    oi = torch.empty((b, n // lsub), dtype=torch.int32, device=dev)
+    if b and n:
+        _launch("fused_scan_bucket_int", "idt_bucket_scan_int", dev,
+                _ptr(qc), _ptr(w), _ptr(codes_t), _ptr(od), _ptr(oi),
+                b, d, n, lsub, cb)
+    return od, oi
+
+
+def _check_topt(qc, qs, codes_t, scales, norms, lsub: int, cb: int,
+                topt: int):
+    _check_bucket(qc, qs, codes_t, scales, norms, lsub, cb)
+    if topt < 1:
+        raise ValueError(f"topt must be >= 1, got {topt}")
+
+
+def fused_scan_topt_plain(qc, qs, codes_t, scales, norms, *, lsub: int,
+                          topt: int, cb: int, is_dot: bool = False):
+    """Plain torch version of :func:`fused_scan_topt`: K2's plain group
+    minima, then the JAX kernel's extraction rounds."""
+    _check_topt(qc, qs, codes_t, scales, norms, lsub, cb, topt)
+    od, oi = fused_scan_bucket_plain(qc, qs, codes_t, scales, norms,
+                                     lsub=lsub, cb=cb, is_dot=is_dot)
+    b = od.shape[0]
+    nc = codes_t.shape[1] // cb
+    m = od.view(b, nc, -1)
+    ids = oi.view(b, nc, -1)
+    out_d, out_i = [], []
+    for _ in range(topt):
+        mv = m.amin(dim=2, keepdim=True)
+        fin = torch.isfinite(mv)
+        tie = torch.where((m == mv) & fin, ids, _I32MAX)
+        mi = tie.amin(dim=2, keepdim=True)
+        out_d.append(mv)
+        out_i.append(torch.where(fin, mi, -1))
+        m = torch.where(ids == mi, torch.inf, m)
+    return (torch.cat(out_d, 2).reshape(b, nc * topt),
+            torch.cat(out_i, 2).reshape(b, nc * topt))
+
+
+def fused_scan_topt(qc, qs, codes_t, scales, norms, *, lsub: int = 16,
+                    topt: int = 8, cb: int = 4096, is_dot: bool = False):
+    """Fused scan with per-block top-T (kernel K5).
+
+    Same operands as :func:`fused_scan_bucket`.  Returns
+    ``(dists [B, (N/cb) * topt] f32, ids [B, (N/cb) * topt] int32)``:
+    for each cb-point block and query, ``topt`` rounds over the block's
+    stride-group minima, each taking the smallest distance, the smallest
+    id among the groups at that distance, and removing that group; ids
+    are -1 where the distance is not finite (a block with fewer eligible
+    points).  Requires lsub | cb | N and, on the card, cb/lsub small
+    enough for one block's shared memory (895 at 32 queries a block).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    or raise.
+    """
+    tensors = (qc, qs, codes_t, scales, norms)
+    if not _on_card(tensors):
+        return fused_scan_topt_plain(qc, qs, codes_t, scales, norms,
+                                     lsub=lsub, topt=topt, cb=cb,
+                                     is_dot=is_dot)
+    _check_topt(qc, qs, codes_t, scales, norms, lsub, cb, topt)
+    from ._build import library
+
+    b, d = qc.shape
+    n = codes_t.shape[1]
+    max_ct = library().idt_topt_max_ct()
+    if cb // lsub > max_ct:
+        raise ValueError(f"cb/lsub = {cb // lsub} exceeds the kernel's "
+                         f"shared memory ({max_ct})")
+    if b > 65535 * 32:
+        raise ValueError(f"batch {b} exceeds the kernel grid")
+    dev = qc.device
+    nt = (n // cb) * topt
+    od = torch.empty((b, nt), dtype=torch.float32, device=dev)
+    oi = torch.empty((b, nt), dtype=torch.int32, device=dev)
+    if b and n:
+        _launch("fused_scan_topt", "idt_topt_scan", dev, _ptr(qc), _ptr(qs),
+                _ptr(codes_t), _ptr(scales), _ptr(norms), _ptr(od),
+                _ptr(oi), b, d, n, lsub, cb, topt, int(is_dot))
+    return od, oi

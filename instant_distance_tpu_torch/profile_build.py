@@ -1,9 +1,11 @@
 """Profile one HNSW build of the port on a CUDA card.
 
-Builds the first ``--n`` points of ``chip_smoke.py``'s data
-(``synthetic_clustered(1_000_000 + 8192, 128, n_clusters=10000,
-seed=3)``) with the smoke's config (m=32, wave 4096) under
-``torch.profiler``, after a warm-up build of 8192 points, and prints:
+Builds the first ``--n`` points of one of ``chip_smoke.py``'s data sets
+(``--dim 128``: ``synthetic_clustered(1_000_000 + 8192, 128,
+n_clusters=10000, seed=3)``, the packed-key build; ``--dim 300``: the
+same at 300-d with seed 5, the K2 build) with the smoke's config (m=32,
+wave 4096) under ``torch.profiler``, after a warm-up build of 8192
+points, and prints:
 
 * the build's wall time under the profiler and the device-kernel share
   of it;
@@ -16,7 +18,7 @@ seed=3)``) with the smoke's config (m=32, wave 4096) under
 repository root on a machine with a card:
 
     python -m instant_distance_tpu_torch.profile_build [--n 131072] \
-        [--out profile_build.txt]
+        [--dim 128|300] [--out profile_build.txt]
 """
 
 from __future__ import annotations
@@ -36,6 +38,8 @@ from .utils.datasets import synthetic_clustered
 
 #: Ops and device kernels listed, the most frequent / longest first.
 _TOP = 8
+#: chip_smoke.py's data sets: dimension -> seed.
+_SEEDS = {128: 3, 300: 5}
 
 
 def _dev_ms(ev, self_only: bool = False) -> float:
@@ -47,6 +51,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=131072,
                     help="points to build (default: 131072)")
+    ap.add_argument("--dim", type=int, choices=_SEEDS, default=128,
+                    help="the smoke's 128-d or 300-d data (default: 128)")
     ap.add_argument("--out", default=None,
                     help="also write the profiler's tables here")
     args = ap.parse_args(argv)
@@ -54,11 +60,12 @@ def main(argv=None) -> int:
         print("profile_build: no CUDA device", file=sys.stderr)
         return 1
 
-    data = synthetic_clustered(1_000_000 + 8192, 128, n_clusters=10000,
-                               seed=3)
+    seed = _SEEDS[args.dim]
+    data = synthetic_clustered(1_000_000 + 8192, args.dim, n_clusters=10000,
+                               seed=seed)
     pts = torch.from_numpy(data[:args.n]).cuda()
     del data
-    cfg = Config(seed=3, m=32, wave_size=4096)
+    cfg = Config(seed=seed, m=32, wave_size=4096)
     Hnsw.build(pts[:8192], cfg)        # warm: kernel build, library handles
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -77,7 +84,8 @@ def main(argv=None) -> int:
                if e.device_type != torch.autograd.DeviceType.CPU
                and not getattr(e, "is_user_annotation", False)]
     kernel_ms = sum(_dev_ms(e, self_only=True) for e in kernels)
-    print(f"profile_build n={args.n} ({torch.cuda.get_device_name(0)}): "
+    print(f"profile_build n={args.n} dim={args.dim} "
+          f"({torch.cuda.get_device_name(0)}): "
           f"wall {wall_ms:.1f} ms (under the profiler), device kernels "
           f"{kernel_ms:.1f} ms = {kernel_ms / wall_ms:.1%} of wall")
     for e in sorted(spans, key=lambda e: -e.cpu_time_total):

@@ -7,7 +7,16 @@ build (its Pallas kernel in interpret mode) inserts the same points in
 the same waves, so ids and layer sizes are identical; the graphs
 themselves may differ where f32 sums in another order or top-k ties at
 the pool boundary pick another candidate, so they are compared by
-validity, recall and zero-layer edge overlap.
+validity, recall and zero-layer edge overlap.  Both packages' ``Config``
+are built from the same keywords.
+
+The K2 build (300-d, and dot/cosine at any width) for sqeuclidean, dot
+and cosine at D=300: a valid graph whose recall@10 against the port's
+``BruteForce`` meets the seed's floor of 0.9
+(tests/test_construct_scan.py) and comes within 0.02 of the JAX
+``construct_mode="scan"`` build on the same data and config.  (The JAX
+``scan_fused`` dot/cosine build is not the reference here: that seed
+test needs tens of GB.)
 
 Graph search: both packages search the JAX-built graph, carried over
 with ``hnsw_from_arrays``.  Tolerances: pids equal on at least 99% of
@@ -17,8 +26,13 @@ so the walk), distances within 1e-5 relative where pids agree.
 Building blocks, on random inputs: reverse-edge grouping, the pending
 window and Alg. 4 selection with an f32 pairwise matrix are bit-exact;
 with the default bfloat16 matrix the selections agree on a stated share
-of rows; the two-key sort breaks ties as ``lax.sort(num_keys=2)``.  A
-subprocess builds and searches with ``import jax`` blocked.
+of rows; the two-key sort breaks ties as ``lax.sort(num_keys=2)``.
+
+The port stands alone: a subprocess builds and searches with ``jax`` and
+``instant_distance_tpu`` both blocked, and the port's own copies of
+``layer_sizes``, ``resolve_seed``, ``Config``, the dataset generators and
+``recall_at_k`` equal the JAX package's.  Numpy input with no ``device``
+goes to the CUDA card, and raises where there is none (here).
 
 The checks run as one test item that pays for one JAX build: each item
 the suite collects shifts how pytest-xdist splits the whole suite into
@@ -37,37 +51,49 @@ import numpy as np
 import pytest
 import torch
 
-from instant_distance_tpu.config import Config
+from instant_distance_tpu import config as jconfig
 from instant_distance_tpu.models.hnsw import Hnsw as JaxHnsw
 from instant_distance_tpu.ops import construct as jc
 from instant_distance_tpu.ops import distance as jdist
 from instant_distance_tpu.ops import select as jsel
+from instant_distance_tpu.utils import datasets as jdatasets
+from instant_distance_tpu.utils import metrics as jmetrics
 from instant_distance_tpu.utils.validate import validate_graph
+from instant_distance_tpu_torch import Builder, ScanIndex
+from instant_distance_tpu_torch import config as tconfig
 from instant_distance_tpu_torch.models.brute import BruteForce
 from instant_distance_tpu_torch.models.hnsw import Hnsw, HnswMap, Search
 from instant_distance_tpu_torch.ops import construct as tc
 from instant_distance_tpu_torch.ops import distance as tdist
 from instant_distance_tpu_torch.ops import select as tsel
 from instant_distance_tpu_torch.ops.sort import sort2
-from instant_distance_tpu_torch.utils.convert import hnsw_from_arrays
+from instant_distance_tpu_torch.utils import datasets as tdatasets
+from instant_distance_tpu_torch.utils import metrics as tmetrics
+from instant_distance_tpu_torch.utils.convert import (as_tensor,
+                                                       hnsw_from_arrays,
+                                                       scan_from_points)
 
 # Tiny shapes: more threads only add synchronisation under a parallel run.
 torch.set_num_threads(1)
 
 N, D, Q = 1024, 16, 64
-CFG = Config(seed=7, m=8, wave_size=16, construct_mode="scan_fused")
+CFG_KW = dict(seed=7, m=8, wave_size=16, construct_mode="scan_fused")
+CFG = tconfig.Config(**CFG_KW)
+JAX_CFG = jconfig.Config(**CFG_KW)
 #: Share of zero-layer edges the two builds have in common.  Measured:
 #: 1.0 (identical zero layers) for seeds 7 and 8 on this data; the floor
 #: leaves room for top-k ties at the pool boundary and last-ulp f32
 #: differences, which may pick another candidate.
 OVERLAP_FLOOR = 0.99
-#: Search settings on the JAX-built graph, one per search variant.
-SEARCH_CFG = dataclasses.replace(CFG, ef_search=32)
+#: Search settings on the JAX-built graph, one per search variant, as
+#: Config keywords for both packages.
+SEARCH_KW = dict(CFG_KW, ef_search=32)
+SEARCH_CFG = tconfig.Config(**SEARCH_KW)
 SEARCH_VARIANTS = {
-    "descent": SEARCH_CFG,
-    "expand1": dataclasses.replace(SEARCH_CFG, search_expand=1),
-    "entry_seeds": dataclasses.replace(SEARCH_CFG, entry_seeds=128),
-    "filtered": SEARCH_CFG,
+    "descent": SEARCH_KW,
+    "expand1": dict(SEARCH_KW, search_expand=1),
+    "entry_seeds": dict(SEARCH_KW, entry_seeds=128),
+    "filtered": SEARCH_KW,
 }
 
 
@@ -88,7 +114,7 @@ def _check_port_build(pts, queries, idx, ids):
     rep = validate_graph(idx.zero.numpy(), [l.numpy() for l in idx.layers])
     assert rep.ok, rep.errors
     assert idx.reverse_drops == 0
-    gt = BruteForce(pts).search_batch(queries, 10)[1].numpy()
+    gt = BruteForce(pts, device="cpu").search_batch(queries, 10)[1].numpy()
     _, p = idx.search_batch(queries, k=10, ef=64)
     pid_gt = ids[gt]
     got = p.numpy()
@@ -99,9 +125,10 @@ def _check_port_build(pts, queries, idx, ids):
 def _check_search(arrays, queries, variant):
     """One search variant on the JAX-built graph, both packages."""
     points, zero, layers = arrays
-    cfg = SEARCH_VARIANTS[variant]
-    jax_idx = JaxHnsw(points, zero, layers, cfg)
-    port = hnsw_from_arrays(points, zero, layers, cfg)
+    kw = SEARCH_VARIANTS[variant]
+    jax_idx = JaxHnsw(points, zero, layers, jconfig.Config(**kw))
+    port = hnsw_from_arrays(points, zero, layers, tconfig.Config(**kw),
+                            device="cpu")
     mask = None
     if variant == "filtered":
         mask = np.random.default_rng(3).random(N) < 0.3
@@ -231,24 +258,30 @@ def _check_sort2_ties():
 
 
 def _check_runs_without_jax():
-    """The port imports no JAX: a tiny CPU build, graph search and
-    kernel-path scan succeed with ``import jax`` blocked, and so do the
+    """The port imports nothing of JAX or the JAX package: a tiny CPU
+    build (K1 and K2 routes), graph search and kernel-path scans succeed
+    with ``jax`` and ``instant_distance_tpu`` blocked, and so do the
     dataset and recall helpers that chip_smoke.py imports."""
     code = (
-        "import sys; sys.modules['jax'] = None\n"
+        "import sys\n"
+        "sys.modules['jax'] = sys.modules['instant_distance_tpu'] = None\n"
         "import numpy as np, instant_distance_tpu_torch as t\n"
         "from instant_distance_tpu_torch.utils.datasets import "
         "synthetic_clustered\n"
         "from instant_distance_tpu_torch.utils.metrics import recall_at_k\n"
         "pts = synthetic_clustered(300, 8, n_clusters=10, seed=0)\n"
-        "idx, ids = t.Hnsw.build(pts, t.Config(seed=1, m=4, wave_size=32))\n"
-        "d, p = idx.search_batch(pts[:4], k=3)\n"
-        "assert recall_at_k(p[:, :1].numpy(), ids[:4, None]) == 1.0\n"
-        "d, i = t.ScanIndex(pts).search_batch(pts[:4], k=3,\n"
-        "    fused='bucket_pack', lsub=8, cb=64)\n"
-        "assert (i[:, 0].numpy() == np.arange(4)).all()\n"
-        "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
-        "                     if sys.modules[m] is not None]\n"
+        "for metric in ('sqeuclidean', 'cosine'):\n"
+        "    idx, ids = t.Hnsw.build(pts, t.Config(seed=1, m=4, wave_size=32,\n"
+        "        metric=metric), device='cpu')\n"
+        "    d, p = idx.search_batch(pts[:4], k=3)\n"
+        "    assert recall_at_k(p[:, :1].numpy(), ids[:4, None]) == 1.0\n"
+        "for fused in ('bucket_pack', 'bucket_int', 'bucket', 'topt'):\n"
+        "    d, i = t.ScanIndex(pts, device='cpu').search_batch(\n"
+        "        pts[:4], k=3, fused=fused, lsub=8, cb=64)\n"
+        "    assert (i[:, 0].numpy() == np.arange(4)).all(), fused\n"
+        "loaded = {m.split('.')[0] for m in sys.modules\n"
+        "          if sys.modules[m] is not None}\n"
+        "assert not loaded & {'jax', 'instant_distance_tpu'}, loaded\n"
         "print('ok')\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="1")
@@ -257,12 +290,91 @@ def _check_runs_without_jax():
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
 
 
+#: The K2 builds: D=300 clustered data, a pool and waves small enough for
+#: the CPU (the JAX reference compiles a wave program per shape).
+K2_N, K2_D, K2_Q = 512, 300, 32
+K2_KW = dict(seed=5, m=8, wave_size=16, ef_construction=24)
+
+
+def _check_k2_builds():
+    data = tdatasets.synthetic_clustered(K2_N + K2_Q, K2_D, n_clusters=32,
+                                         seed=4)
+    pts, queries = data[:K2_N], data[K2_N:]
+    for metric in ("sqeuclidean", "dot", "cosine"):
+        kw = dict(K2_KW, metric=metric)
+        idx, ids = Hnsw.build(torch.from_numpy(pts), tconfig.Config(**kw))
+        rep = validate_graph(idx.zero.numpy(), [l.numpy() for l in idx.layers])
+        assert rep.ok, (metric, rep.errors)
+        assert idx.reverse_drops == 0
+        gt = ids[BruteForce(pts, metric, device="cpu").search_batch(
+            queries, 10)[1].numpy()]
+        rec = tmetrics.recall_at_k(
+            idx.search_batch(queries, k=10, ef=64)[1].numpy(), gt)
+        ref, ref_ids = JaxHnsw.build(
+            pts, jconfig.Config(construct_mode="scan", **kw))
+        ref_gt = ref_ids[BruteForce(pts, metric, device="cpu").search_batch(
+            queries, 10)[1].numpy()]
+        ref_rec = tmetrics.recall_at_k(
+            np.asarray(ref.search_batch(queries, k=10, ef=64)[1]), ref_gt)
+        assert rec >= 0.9 and rec >= ref_rec - 0.02, (metric, rec, ref_rec)
+
+
+def _check_copies():
+    """The port's own copies equal the JAX package's originals."""
+    for n, ml, m in ((1, 0.3, 4), (1000, 1 / np.log(8), 8),
+                     (1_000_000, 1 / np.log(32), 32), (50, 0.9, 2)):
+        assert tconfig.layer_sizes(n, ml, m) == jconfig.layer_sizes(n, ml, m)
+    assert tconfig.resolve_seed(11) == jconfig.resolve_seed(11) == 11
+    assert isinstance(tconfig.resolve_seed(None), int)
+    assert ([(f.name, f.default) for f in dataclasses.fields(tconfig.Config)]
+            == [(f.name, f.default)
+                for f in dataclasses.fields(jconfig.Config)])
+    assert tconfig.Config().m0 == jconfig.Config().m0
+    assert tconfig.DEFAULT_M == jconfig.DEFAULT_M
+    assert tconfig.INVALID == jconfig.INVALID
+    np.testing.assert_array_equal(
+        tdatasets.synthetic_clustered(300, 7, n_clusters=5, seed=3),
+        jdatasets.synthetic_clustered(300, 7, n_clusters=5, seed=3))
+    np.testing.assert_array_equal(tdatasets.synthetic_uniform(50, 4, seed=2),
+                                  jdatasets.synthetic_uniform(50, 4, seed=2))
+    rng = np.random.default_rng(1)
+    found = rng.integers(-1, 20, (9, 10))
+    true = rng.integers(-1, 20, (9, 10))
+    assert (tmetrics.recall_at_k(found, true, 5)
+            == jmetrics.recall_at_k(found, true, 5))
+
+
+def _check_card_default():
+    """Numpy input with no device goes to the card; here, with none, every
+    entry point raises instead of running on the CPU.  CPU tensors keep
+    their device."""
+    pts = np.zeros((40, 4), np.float32)
+    assert as_tensor(torch.zeros(2)).device.type == "cpu"
+    assert as_tensor(pts, "cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        assert as_tensor(pts).device.type == "cuda"
+        return
+    entry_points = (
+        lambda: as_tensor(pts),
+        lambda: Hnsw.build(pts, CFG),
+        lambda: HnswMap.build(pts, list(range(40)), CFG),
+        lambda: Builder(CFG).build_hnsw(pts),
+        lambda: ScanIndex(pts),
+        lambda: BruteForce(pts),
+        lambda: scan_from_points(pts),
+        lambda: hnsw_from_arrays(pts, np.full((40, 16), -1, np.int32), [],
+                                 CFG))
+    for call in entry_points:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
 def test_build_and_search_match_jax():
     rng = np.random.default_rng(7)
     pts = rng.random((N, D), dtype=np.float32)
     queries = rng.random((Q, D), dtype=np.float32)
-    ref, ref_ids = JaxHnsw.build(pts, CFG)
-    idx, ids = Hnsw.build(pts, CFG)
+    ref, ref_ids = JaxHnsw.build(pts, JAX_CFG)
+    idx, ids = Hnsw.build(pts, CFG, device="cpu")
     _check_builds_agree(pts, ref, ref_ids, idx, ids)
     _check_port_build(pts, queries, idx, ids)
 
@@ -273,7 +385,10 @@ def test_build_and_search_match_jax():
         _check_search(arrays, queries, variant)
     _check_map_api(arrays, queries)
 
+    _check_k2_builds()
     _check_reverse_grouping()
     _check_select_heuristic()
     _check_sort2_ties()
+    _check_copies()
+    _check_card_default()
     _check_runs_without_jax()

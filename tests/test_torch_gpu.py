@@ -1,12 +1,14 @@
-"""The CUDA packed-key scan kernel against its plain torch version.
+"""The CUDA scan kernels against their plain torch versions.
 
 Needs a CUDA card (marker ``gpu``; skipped elsewhere).  Imports no JAX,
 so it runs on a machine that has only PyTorch:
 
-    python -m pytest -m gpu tests/test_torch_gpu.py
+    python -m pytest -m gpu --noconftest tests/test_torch_gpu.py
 
-Tolerance: none — int32 keys are bit-exact.  One test item, for the
-reason given in tests/test_torch_scan.py.
+Tolerance: none.  K1 and K3 are integer kernels; K2 and K5 round every
+f32 operation in the plain version's order, so distances and ids are
+bit-exact too.  Each case also checks that the wrapper counted one
+launch.  One test item, for the reason given in tests/test_torch_scan.py.
 """
 
 import numpy as np
@@ -17,13 +19,22 @@ from instant_distance_tpu_torch.ops import scan_kernel as tsk
 
 pytestmark = pytest.mark.gpu
 
-#: (B, D, N, lsub, cb, groups)
-CASES = (
+#: K1: (B, D, N, lsub, cb, groups)
+PACKED_CASES = (
     (1024, 128, 65536, 64, 8192, 0),     # the main path's shapes
     (1024, 128, 65536, 64, 8192, 2),
     (100, 20, 4096, 16, 1024, 4),        # ragged batch, D % 32 != 0
     (7, 3, 512, 8, 64, 0),
 )
+#: K2 / K3 / K5: (B, D, N, lsub, cb); each runs K2 and K5 both ways of
+#: is_dot.  300 is the fastText width of the 300-d path.
+BUCKET_CASES = (
+    (1024, 300, 65536, 32, 4096),        # the build's and bucket's shapes
+    (1024, 300, 65536, 64, 8192),        # ScanIndex bucket_int at 300-d
+    (100, 20, 8192, 16, 4096),           # ragged batch, D % 32 != 0
+    (7, 3, 512, 8, 64),
+)
+TOPT = 8
 
 
 @pytest.fixture
@@ -33,7 +44,7 @@ def cuda():
     return torch.device("cuda")
 
 
-def _operands(b, d, n, lsub, cb, seed, device):
+def _packed_operands(b, d, n, lsub, cb, seed, device):
     g = torch.Generator().manual_seed(seed)
     qc = torch.randint(-127, 128, (b, d), generator=g, dtype=torch.int8)
     codes = torch.randint(-127, 128, (d, n), generator=g, dtype=torch.int8)
@@ -45,28 +56,106 @@ def _operands(b, d, n, lsub, cb, seed, device):
     return qc.to(device), w2.to(device), codes.to(device)
 
 
-def test_kernel_matches_plain(cuda):
-    for b, d, n, lsub, cb, groups in CASES:
-        qc, w2, codes = _operands(b, d, n, lsub, cb, seed=n + d, device=cuda)
-        before = tsk.launches
-        got = tsk.fused_scan_bucket_int_packed(qc, w2, codes, lsub=lsub,
-                                               cb=cb, groups=groups)
-        torch.cuda.synchronize()
-        assert tsk.launches == before + 1
+def _bucket_operands(b, d, n, seed, device):
+    """Random K2/K3/K5 operands: ineligible (+inf, and the int kernel's
+    INT32_MAX // 2) points, a padded tail, rank weights reaching the
+    int32 range so that ``w - dot`` wraps."""
+    g = torch.Generator().manual_seed(seed)
+    qc = torch.randint(-127, 128, (b, d), generator=g, dtype=torch.int8)
+    codes = torch.randint(-127, 128, (d, n), generator=g, dtype=torch.int8)
+    qs = torch.rand((b, 1), generator=g) * 0.02 + 1e-3
+    scales = torch.rand((1, n), generator=g) * 0.02 + 1e-3
+    norms = torch.rand((1, n), generator=g) * 4
+    out = torch.rand((1, n), generator=g) < 0.1
+    out[0, -n // 16:] = True
+    norms[out] = torch.inf
+    w = torch.randint(-2**20, 2**31 - 1, (1, n), generator=g,
+                      dtype=torch.int32)
+    w[out] = (2**31 - 1) // 2
+    return [t.to(device) for t in (qc, qs, codes, scales, norms, w)]
+
+
+def _same(got, want, what):
+    for g_, w_ in zip(got, want):
+        np.testing.assert_array_equal(g_.cpu().numpy(), w_.cpu().numpy(),
+                                      err_msg=what)
+
+
+def _launched(name, fn):
+    before = tsk.launches[name]
+    out = fn()
+    torch.cuda.synchronize()
+    assert tsk.launches[name] == before + 1, name
+    return out
+
+
+def _check_packed(cuda):
+    for b, d, n, lsub, cb, groups in PACKED_CASES:
+        qc, w2, codes = _packed_operands(b, d, n, lsub, cb, seed=n + d,
+                                         device=cuda)
+        got = _launched("fused_scan_bucket_int_packed",
+                        lambda: tsk.fused_scan_bucket_int_packed(
+                            qc, w2, codes, lsub=lsub, cb=cb, groups=groups))
         want = tsk.fused_scan_bucket_int_packed_plain(
             qc, w2, codes, lsub=lsub, cb=cb, groups=groups)
         if groups <= 1:
             got, want = (got,), (want,)
-        for g_, w_ in zip(got, want):
-            np.testing.assert_array_equal(
-                g_.cpu().numpy(), w_.cpu().numpy(),
-                err_msg=f"B={b} D={d} N={n} lsub={lsub} cb={cb} "
-                        f"groups={groups}")
+        _same(got, want, f"K1 B={b} D={d} N={n} lsub={lsub} cb={cb} "
+                         f"groups={groups}")
 
-    # malformed operands raise instead of reaching the kernel
-    qc, w2, codes = _operands(8, 16, 512, 8, 64, seed=0, device=cuda)
+
+def _check_bucket(cuda):
+    for b, d, n, lsub, cb in BUCKET_CASES:
+        qc, qs, codes, scales, norms, w = _bucket_operands(b, d, n, n + d,
+                                                           cuda)
+        case = f"B={b} D={d} N={n} lsub={lsub} cb={cb}"
+        for is_dot in (False, True):
+            nm = torch.where(torch.isfinite(norms), 0.0, torch.inf) \
+                if is_dot else norms
+            args = (qc, qs, codes, scales, nm)
+            got = _launched("fused_scan_bucket", lambda: tsk.fused_scan_bucket(
+                *args, lsub=lsub, cb=cb, is_dot=is_dot))
+            _same(got, tsk.fused_scan_bucket_plain(
+                *args, lsub=lsub, cb=cb, is_dot=is_dot),
+                f"K2 {case} is_dot={is_dot}")
+            got = _launched("fused_scan_topt", lambda: tsk.fused_scan_topt(
+                *args, lsub=lsub, topt=TOPT, cb=cb, is_dot=is_dot))
+            _same(got, tsk.fused_scan_topt_plain(
+                *args, lsub=lsub, topt=TOPT, cb=cb, is_dot=is_dot),
+                f"K5 {case} is_dot={is_dot}")
+        got = _launched("fused_scan_bucket_int",
+                        lambda: tsk.fused_scan_bucket_int(qc, w, codes,
+                                                          lsub=lsub, cb=cb))
+        _same(got, tsk.fused_scan_bucket_int_plain(qc, w, codes, lsub=lsub,
+                                                   cb=cb), f"K3 {case}")
+
+
+def _check_malformed(cuda):
+    """Malformed operands raise instead of reaching a kernel."""
+    qc, w2, codes = _packed_operands(8, 16, 512, 8, 64, seed=0, device=cuda)
     with pytest.raises(ValueError, match="device"):
         tsk.fused_scan_bucket_int_packed(qc.cpu(), w2, codes, lsub=8, cb=64)
     with pytest.raises(ValueError, match="contiguous"):
         tsk.fused_scan_bucket_int_packed(qc, w2, codes.T.contiguous().T,
                                          lsub=8, cb=64)
+    qc, qs, codes, scales, norms, w = _bucket_operands(8, 16, 512, 0, cuda)
+    with pytest.raises(ValueError, match="device"):
+        tsk.fused_scan_bucket(qc, qs.cpu(), codes, scales, norms, lsub=8,
+                              cb=64)
+    with pytest.raises(TypeError):
+        tsk.fused_scan_bucket(qc, qs.double(), codes, scales, norms, lsub=8,
+                              cb=64)
+    with pytest.raises(ValueError, match="lsub"):
+        tsk.fused_scan_bucket_int(qc, w, codes, lsub=6, cb=64)
+    with pytest.raises(ValueError, match="contiguous"):
+        tsk.fused_scan_topt(qc, qs, codes.T.contiguous().T, scales, norms,
+                            lsub=8, cb=64)
+    qc, qs, codes, scales, norms, w = _bucket_operands(8, 16, 1024, 0, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        tsk.fused_scan_topt(qc, qs, codes, scales, norms, lsub=1, cb=1024)
+
+
+def test_kernel_matches_plain(cuda):
+    _check_packed(cuda)
+    _check_bucket(cuda)
+    _check_malformed(cuda)

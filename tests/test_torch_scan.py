@@ -1,16 +1,30 @@
-"""The scan path of the PyTorch port vs the JAX package: kernel K1, the
-ScanIndex built on it, and the building blocks they share.
+"""The scan path of the PyTorch port vs the JAX package: kernels K1, K2,
+K3 and K5, the ScanIndex built on them, and the building blocks they
+share.
 
 * K1: the port's plain torch version of ``fused_scan_bucket_int_packed``
   and its ``pack_w2`` agree BIT FOR BIT with the JAX ones (the Pallas
   kernel in interpret mode, both kernel bodies, with and without the
-  second-level group min).  The CUDA kernel is held to the plain version
-  on the card by tests/test_torch_gpu.py.
-* ScanIndex on the same points, both search paths (the packed-key kernel
-  path ``fused="bucket_pack"`` and the default streamed scan), with and
-  without tombstones and a filter mask: ids equal on at least 99% of
-  entries (f32 sums in another order can swap near-equal candidates),
-  distances within 1e-5 relative where ids agree.
+  second-level group min).
+* K2 ``fused_scan_bucket``, K3 ``fused_scan_bucket_int`` and K5
+  ``fused_scan_topt``: the plain versions against the Pallas kernels in
+  interpret mode on one- and two-cell grids (``inner`` 1 and 2, D 16, 300
+  and 3, ``is_dot`` both ways, an ineligible tail).  K3 ranks and all ids
+  must be bit-exact; K2/K5 distances are held to rtol 1e-6 and measured
+  bit-exact (the port keeps the kernels' f32 order of operations).  Their
+  operands (``ScanIndex._fused_arrays`` for l2/dot/cosine and the build's
+  ``_quantize_for_scan``) match the JAX ones: codes bit-exact, scales
+  and norms within rtol 1e-6 (a norm is an f32 sum of D squares, summed
+  in another order: measured 3.3e-7 at D=300).  The CUDA kernels are held to the plain
+  versions on the card by tests/test_torch_gpu.py.
+* ScanIndex on the same points, every search path (``bucket_pack``,
+  ``bucket_int``, ``bucket``, ``topt``, ``bucket_pack`` turned
+  ``bucket_int`` at D * lsub > 16384, and the default streamed scan),
+  with ``rerank=False``, tombstones and a filter mask: ids equal on at
+  least 99% of entries (f32 sums in another order can swap near-equal
+  candidates), distances within 1e-5 relative where ids agree.  The int32
+  conversion of ``bucket_int``'s rank weights saturates as XLA's does; a
+  batch of small queries against large points shows it.
 * Building blocks on random inputs: the four named metrics in their
   three batched forms within 1e-5 relative and 1e-5 absolute (the matmul
   forms lose the last bits of ``|q|^2 - 2 q.p + |p|^2`` to cancellation,
@@ -32,12 +46,14 @@ import torch
 from instant_distance_tpu.models import scan as jscan
 from instant_distance_tpu.models.brute import BruteForce as JaxBruteForce
 from instant_distance_tpu.models.scan import ScanIndex as JaxScanIndex
+from instant_distance_tpu.ops import construct as jconstruct
 from instant_distance_tpu.ops import distance as jdist
 from instant_distance_tpu.ops import packed as jpacked
 from instant_distance_tpu.ops import scan_kernel as jsk
 from instant_distance_tpu.ops import select as jsel
 from instant_distance_tpu_torch.models import scan as tscan
 from instant_distance_tpu_torch.models.brute import BruteForce
+from instant_distance_tpu_torch.ops import construct as tconstruct
 from instant_distance_tpu_torch.ops import distance as tdist
 from instant_distance_tpu_torch.ops import packed as tpacked
 from instant_distance_tpu_torch.ops import scan_kernel as tsk
@@ -136,7 +152,7 @@ def _check_k1_wrapper():
     qc, codes, norms, eligible, denom = _k1_operands()
     w2 = tsk.pack_w2(torch.from_numpy(norms), torch.tensor(denom), None,
                      lsub=8, cb=512, d=KD)
-    before = tsk.launches
+    before = dict(tsk.launches)
     out = tsk.fused_scan_bucket_int_packed(
         torch.from_numpy(qc), w2, torch.from_numpy(codes), lsub=8, cb=512)
     assert tuple(out.shape) == (KB, KN // 8) and out.dtype == torch.int32
@@ -155,6 +171,136 @@ def _check_k1_wrapper():
 
 
 # ---------------------------------------------------------------------------
+# kernels K2, K3, K5 and their operands
+# ---------------------------------------------------------------------------
+
+#: (B, D, N, cb, inner, lsub, is_dot, topt): one- and two-cell grids, the
+#: 300-d width, and D=3 with a 64-query block.
+BUCKET_CASES = ((32, 16, 4096, 4096, 1, 32, False, 8),
+                (32, 300, 8192, 4096, 2, 32, True, 8),
+                (64, 3, 1024, 256, 2, 8, False, 5))
+
+
+def _bucket_operands(b, d, n, is_dot, seed):
+    """Random codes and scales, norms (the 0 bias under is_dot) with an
+    ineligible tail and random ineligible points, and rank weights
+    reaching the int32 range (``w - dot`` wraps) with INT32_MAX // 2
+    marking ineligible points."""
+    rng = np.random.default_rng(seed)
+    qc = rng.integers(-127, 128, (b, d), dtype=np.int8)
+    codes = rng.integers(-127, 128, (d, n), dtype=np.int8)
+    qs = rng.uniform(1e-3, 2e-2, (b, 1)).astype(np.float32)
+    scales = rng.uniform(1e-3, 2e-2, (1, n)).astype(np.float32)
+    norms = (np.zeros((1, n)) if is_dot
+             else rng.uniform(0, 4, (1, n))).astype(np.float32)
+    out = rng.random((1, n)) < 0.2
+    out[0, -300:] = True
+    norms[out] = np.inf
+    w = rng.integers(-2**20, 2**31 - 1, (1, n)).astype(np.int32)
+    w[out] = np.iinfo(np.int32).max // 2
+    return qc, qs, codes, scales, norms, w
+
+
+def _check_bucket_kernels_plain():
+    """Plain K2/K3/K5 vs the Pallas kernels in interpret mode."""
+    for b, d, n, cb, inner, lsub, is_dot, topt in BUCKET_CASES:
+        qc, qs, codes, scales, norms, w = _bucket_operands(b, d, n, is_dot,
+                                                           seed=d)
+        case = f"B={b} D={d} N={n} cb={cb} inner={inner} is_dot={is_dot}"
+        f32 = tuple(map(torch.from_numpy, (qc, qs, codes, scales, norms)))
+        j32 = tuple(map(jnp.asarray, (qc, qs, codes, scales, norms)))
+        for got, want, what in (
+                (tsk.fused_scan_bucket(*f32, lsub=lsub, cb=cb,
+                                       is_dot=is_dot),
+                 jsk.fused_scan_bucket(*j32, lsub=lsub, qb=b, cb=cb,
+                                       inner=inner, is_dot=is_dot,
+                                       interpret=True), "K2"),
+                (tsk.fused_scan_topt(*f32, lsub=lsub, topt=topt, cb=cb,
+                                     is_dot=is_dot),
+                 jsk.fused_scan_topt(*j32, lsub=lsub, topt=topt, qb=b,
+                                     cb=cb, is_dot=is_dot, interpret=True),
+                 "K5")):
+            np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]),
+                                          err_msg=f"{what} ids {case}")
+            np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                                       rtol=1e-6, atol=0,
+                                       err_msg=f"{what} dists {case}")
+        got = tsk.fused_scan_bucket_int(torch.from_numpy(qc),
+                                        torch.from_numpy(w),
+                                        torch.from_numpy(codes), lsub=lsub,
+                                        cb=cb)
+        want = jsk.fused_scan_bucket_int(jnp.asarray(qc), jnp.asarray(w),
+                                         jnp.asarray(codes), lsub=lsub, qb=b,
+                                         cb=cb, inner=inner, interpret=True)
+        for g, wnt in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(wnt),
+                                          err_msg=f"K3 {case}")
+
+
+def _check_bucket_wrappers():
+    """CPU tensors take the plain versions without counting a launch;
+    malformed operands raise."""
+    qc, qs, codes, scales, norms, w = map(
+        torch.from_numpy, _bucket_operands(8, 16, 512, False, seed=1))
+    before = dict(tsk.launches)
+    od, oi = tsk.fused_scan_bucket(qc, qs, codes, scales, norms, lsub=8,
+                                   cb=64)
+    assert od.dtype == torch.float32 and oi.dtype == torch.int32
+    assert tuple(od.shape) == tuple(oi.shape) == (8, 64)
+    od, oi = tsk.fused_scan_topt(qc, qs, codes, scales, norms, lsub=8,
+                                 topt=3, cb=64)
+    assert tuple(od.shape) == (8, 8 * 3)
+    od, oi = tsk.fused_scan_bucket_int(qc, w, codes, lsub=8, cb=64)
+    assert od.dtype == torch.int32 and tuple(oi.shape) == (8, 64)
+    assert tsk.launches == before
+    with pytest.raises(TypeError):
+        tsk.fused_scan_bucket(qc, qs.double(), codes, scales, norms, lsub=8,
+                              cb=64)
+    with pytest.raises(ValueError, match="qs"):
+        tsk.fused_scan_bucket(qc, qs[:4], codes, scales, norms, lsub=8,
+                              cb=64)
+    with pytest.raises(ValueError, match="lsub"):
+        tsk.fused_scan_bucket_int(qc, w, codes, lsub=6, cb=64)
+    with pytest.raises(ValueError, match="topt"):
+        tsk.fused_scan_topt(qc, qs, codes, scales, norms, lsub=8, topt=0,
+                            cb=64)
+    with pytest.raises(ValueError, match="device"):
+        tsk.fused_scan_bucket_int(qc, w, codes.to("meta"), lsub=8, cb=64)
+
+
+def _check_fused_operands():
+    """``ScanIndex._fused_arrays`` (l2/dot/cosine) and the build's
+    ``_quantize_for_scan`` (K2 at D=300 for each metric, K1 at D=16)."""
+    rng = np.random.default_rng(5)
+    pts = rng.standard_normal((700, 300)).astype(np.float32)
+    pts[3] = 0.0                                   # the 1e-30 norm floor
+    jidx = JaxScanIndex(pts)
+    port = scan_from_points(pts, device="cpu")
+    for variant in ("l2", "dot", "cosine"):
+        got = port._fused_arrays(256, variant)
+        want = jidx._fused_arrays(256, variant)
+        _same_operands(got, want, f"_fused_arrays {variant}")
+    for metric, d in (("sqeuclidean", 300), ("dot", 300), ("cosine", 300),
+                      ("sqeuclidean", 16)):
+        want = jconstruct._quantize_for_scan(jnp.asarray(pts[:, :d]),
+                                             fused=True, metric_name=metric)
+        got = tconstruct._quantize_for_scan(torch.from_numpy(pts[:, :d]),
+                                            metric)
+        _same_operands(got, want, f"_quantize_for_scan {metric} D={d}")
+
+
+def _same_operands(got, want, what):
+    """(codes_t, scales, norms): codes bit-exact, scales and norms within
+    rtol 1e-6."""
+    codes_t, scales, norms = got
+    np.testing.assert_array_equal(codes_t.numpy(), np.asarray(want[0]),
+                                  err_msg=what)
+    for g, w in ((scales, want[1]), (norms, want[2])):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6,
+                                   atol=0, err_msg=what)
+
+
+# ---------------------------------------------------------------------------
 # ScanIndex
 # ---------------------------------------------------------------------------
 
@@ -170,7 +316,7 @@ def _check_scan_index():
     queries = rng.standard_normal((SQ, KD)).astype(np.float32)
     mask = rng.random(SN) < 0.5
     jax_idx = JaxScanIndex(pts, chunk=512)
-    port = scan_from_points(pts, chunk=512)
+    port = scan_from_points(pts, device="cpu", chunk=512)
     for name, kw in (("bucket_pack", PACK), ("streamed", dict(ef=32)),
                      ("pack_norerank", dict(PACK, rerank=False)),
                      ("streamed_tile", dict(ef=32, tile=4))):
@@ -181,7 +327,7 @@ def _check_scan_index():
 
     # the port's own ground truth: bucket_pack recall@10 stays at the
     # level the JAX tests hold its kernel path to
-    gt = BruteForce(pts).search_batch(queries, 10)[1].numpy()
+    gt = BruteForce(pts, device="cpu").search_batch(queries, 10)[1].numpy()
     got = port.search_batch(queries, k=10, **PACK)[1].numpy()
     rec = np.mean([len(set(got[i]) & set(gt[i])) / 10 for i in range(SQ)])
     assert rec >= 0.9, rec
@@ -199,7 +345,8 @@ def _check_scan_index():
                      f"{name} filtered")
         assert np.all(ok[got[got >= 0]]), "a filtered or deleted id came back"
 
-    small = scan_from_points(pts[:300], values=[f"v{i}" for i in range(300)])
+    small = scan_from_points(pts[:300], device="cpu",
+                             values=[f"v{i}" for i in range(300)])
     d, i, vals = small.search_batch_values(queries[:2], k=3)
     assert vals[0][0] == f"v{int(i[0, 0])}"
     assert small.device == torch.device("cpu")
@@ -207,8 +354,92 @@ def _check_scan_index():
         small.delete([300])
     with pytest.raises(ValueError, match="filter_mask"):
         small.search_batch(queries, filter_mask=np.ones(5, bool))
-    with pytest.raises(NotImplementedError, match="K2"):
-        small.search_batch(queries, fused="bucket", cb=256)
+    with pytest.raises(ValueError, match="fused"):
+        small.search_batch(queries, fused="tile", cb=256)
+    with pytest.raises(NotImplementedError, match="sel_group"):
+        small.search_batch(queries, fused="bucket_pack", cb=256, sel_group=2)
+
+
+#: ScanIndex fused modes at D=300 (cb small enough that 1024 points fill
+#: whole kernel blocks): (label, metric, search_batch arguments).
+MODES = (
+    ("bucket", "sqeuclidean", dict(fused="bucket", cb=256, inner=2)),
+    ("bucket_int", "sqeuclidean", dict(fused="bucket_int", lsub=16, cb=256)),
+    ("bucket_pack->bucket_int", "sqeuclidean",
+     dict(fused="bucket_pack", lsub=64, cb=512, inner=2)),
+    ("topt", "sqeuclidean", dict(fused="topt", cb=256, inner=2, topt=4)),
+    ("bucket_int norerank", "sqeuclidean",
+     dict(fused="bucket_int", lsub=16, cb=256, rerank=False)),
+    ("bucket cosine", "cosine", dict(fused=True, cb=256)),
+    ("topt cosine norerank", "cosine",
+     dict(fused="topt", cb=256, rerank=False)),
+    ("bucket_int->bucket dot", "dot", dict(fused="bucket_int", cb=256)),
+)
+#: The modes also run with tombstones and a filter mask.
+FILTERED = ("bucket_int", "topt", "bucket cosine")
+
+
+def _check_scan_index_modes():
+    """Every fused mode against the JAX ScanIndex (Pallas kernels in
+    interpret mode), then one of each kernel with tombstones and a
+    filter mask."""
+    rng = np.random.default_rng(12)
+    pts = rng.standard_normal((1024, 300)).astype(np.float32)
+    queries = rng.standard_normal((SQ, 300)).astype(np.float32)
+    mask = rng.random(1024) < 0.5
+    dead = np.arange(0, 1024, 7)
+    ok = mask & np.isin(np.arange(1024), dead, invert=True)
+    for filtered in (False, True):
+        pairs = {}
+        for label, metric, kw in MODES:
+            if filtered and label not in FILTERED:
+                continue
+            if metric not in pairs:
+                pairs[metric] = (JaxScanIndex(pts, metric=metric),
+                                 scan_from_points(pts, device="cpu",
+                                                  metric=metric))
+                if filtered:
+                    for index in pairs[metric]:
+                        index.delete(dead)
+            jidx, port = pairs[metric]
+            fm = dict(filter_mask=mask) if filtered else {}
+            jd, ji = jidx.search_batch(queries, k=10, ef=32, **kw, **fm,
+                                       **JAX_KW)
+            td, ti = port.search_batch(queries, k=10, ef=32, **kw, **fm)
+            got = ti.numpy()
+            _same_mostly(td.numpy(), got, np.asarray(jd), np.asarray(ji),
+                         f"{label} filtered={filtered}")
+            if filtered:
+                assert np.all(ok[got[got >= 0]]), f"{label}: a filtered " \
+                    "or deleted id came back"
+
+
+def _check_int32_saturation():
+    """``bucket_int``'s rank weights round(|p_hat|^2 / (2 qs sg)) pass
+    2^31 for a batch of small queries against large points; XLA's convert
+    saturates them at INT32_MAX, and so must the port (a plain
+    ``.to(torch.int32)`` gives INT32_MIN here).  ef covers every stride
+    group, so the candidate set does not hang on top-k tie order."""
+    rng = np.random.default_rng(13)
+    pts = rng.standard_normal((512, KD)).astype(np.float32)
+    pts[::9] *= 3000.0
+    queries = 0.01 * rng.standard_normal((SQ, KD)).astype(np.float32)
+    port = scan_from_points(pts, device="cpu")
+    codes_t, norms_r, sg = port._fused_int_arrays(256)
+    qs = torch.clamp(torch.from_numpy(queries).abs().max(), min=1e-30) / 127
+    ratio = torch.round(norms_r / (2.0 * qs * sg))
+    assert float(ratio[torch.isfinite(ratio)].max()) >= 2**31
+    want = np.asarray(jnp.asarray(ratio.numpy()).astype(jnp.int32))
+    np.testing.assert_array_equal(tscan._int32_saturating(ratio).numpy(),
+                                  want)
+    jidx = JaxScanIndex(pts)
+    for rerank in (True, False):
+        kw = dict(k=10, ef=32, fused="bucket_int", lsub=16, cb=256,
+                  rerank=rerank)
+        jd, ji = jidx.search_batch(queries, **kw, **JAX_KW)
+        td, ti = port.search_batch(queries, **kw)
+        _same_mostly(td.numpy(), ti.numpy(), np.asarray(jd), np.asarray(ji),
+                     f"saturated bucket_int rerank={rerank}")
 
 
 # ---------------------------------------------------------------------------
@@ -307,7 +538,8 @@ def _check_bruteforce():
     q = rng.standard_normal((2 * B, KD), dtype=np.float32)
     for metric in METRICS:
         jd, ji = JaxBruteForce(pts, metric, chunk=64).search_batch(q, 10)
-        td, ti = BruteForce(pts, metric, chunk=64).search_batch(q, 10)
+        td, ti = BruteForce(pts, metric, chunk=64,
+                            device="cpu").search_batch(q, 10)
         _same_mostly(td.numpy(), ti.numpy(), np.asarray(jd), np.asarray(ji),
                      f"BruteForce {metric}")
 
@@ -316,7 +548,12 @@ def test_scan_path_matches_jax():
     _check_pack_w2()
     _check_k1_plain()
     _check_k1_wrapper()
+    _check_bucket_kernels_plain()
+    _check_bucket_wrappers()
+    _check_fused_operands()
     _check_scan_index()
+    _check_scan_index_modes()
+    _check_int32_saturation()
     _check_metrics()
     _check_quantize()
     _check_rerank()
