@@ -8,23 +8,34 @@ against its plain torch version:
   1. device   — needs CUDA; prints the card's name and power limit;
   2. build    — compiles csrc/*.cu (one nvcc per source, in parallel);
   3. kernels  — each kernel (K1 packed keys, K2 bucket, K3 bucket_int,
-                K5 topt) vs its plain version on random inputs from a
-                seeded generator on the card: a slice, then the paths'
-                own call shapes; results bit-exact, both timed with CUDA
-                events in turns;
+                K5 topt, K4 walk, K6 probe in its three modes) vs its
+                plain version on random inputs from a seeded generator on
+                the card: a slice, then the paths' own call shapes (K4 on
+                a random valid graph of 65,536 nodes, K = 64, D 128 and
+                300, both merges, expand 1 and 2); results bit-exact,
+                both timed with CUDA events in turns; torch._int_mm on
+                K1's product as the yardstick of K6's "mm" mode;
   4. scan     — ScanIndex(fused="bucket_pack") over SIFT1M-shaped data
                 (1M x 128), an 8192-query batch: qps, recall@10 vs
-                BruteForce (K1);
+                BruteForce (K1); then the attribution path: K6's three
+                modes on that very batch's operands, timed beside K1;
   5. hnsw     — Hnsw.build at --build-n points (default 1M) of that data,
                 then search_batch(ef=50): build time, qps, recall (K1);
-  6. scan300  — fastText-shaped data (1M x 300, the width of the
+  6. packed   — the serving flow on that index: dump (native npz), load,
+                PackedHnsw.from_index, search_batch_kernel (K4, both
+                merges) on an 8192-query batch with the seed scan, K4
+                against its plain version at that very call, and the
+                plain-op search_batch at the same settings;
+  7. scan300  — fastText-shaped data (1M x 300, the width of the
                 reference binding's FloatArray): ScanIndex with the same
                 bucket_pack request, which runs K3 at 300-d, then cosine
                 ScanIndex fused="bucket" (K2) and fused="topt" (K5);
-  7. hnsw300  — HnswMap.build of those 1M x 300 points with string
+  8. hnsw300  — HnswMap.build of those 1M x 300 points with string
                 values, sqeuclidean (K2 in every wave), search_batch(ef=50)
                 and one search through the Search iterator;
-  8. launches — every kernel ran inside its paths (each path is driven
+  9. packed300 — PackedHnsw.from_index of that map (D = 300 unpadded),
+                search_batch_kernel (K4) and search_batch_values;
+ 10. launches — every kernel ran inside its paths (each path is driven
                 with the launch counts set to 0 just before it and read
                 just after).
 
@@ -41,8 +52,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -54,10 +67,15 @@ SCAN_KW = dict(k=K, fused="bucket_pack", lsub=64, cb=8192, inner=2, ef=32)
 #: ScanIndex's default point block, and the build's K2 block and width.
 SCAN_CB, BUILD_CB, BUILD_LSUB = 4096, 4096, 32
 TOPT, TOPT_LSUB = 8, 16
-#: H100 SXM peaks (NVIDIA's data sheet): dense int8 tensor-core rate and
-#: HBM3 bandwidth.  A kernel's bound is the larger of its operations and
-#: its bytes (each input read once, each output written once) over them.
-PEAK_INT8_OPS, PEAK_BYTES = 1979e12, 3.35e12
+#: H100 SXM peaks (NVIDIA's data sheet): dense int8 tensor-core rate,
+#: f32 rate outside the tensor cores and HBM3 bandwidth.  A kernel's
+#: bound is the larger of its operations and its bytes (each input read
+#: once, each output written once) over them.
+PEAK_INT8_OPS, PEAK_F32_OPS, PEAK_BYTES = 1979e12, 67e12, 3.35e12
+#: The packed serving settings: ef, the seed scan's S, expand.
+PACKED_KW = dict(k=K, ef=50, entry_seeds=8192, expand=2)
+#: K4's random-graph cases: nodes, neighbours per row, batch, ef, seeds.
+WALK_N, WALK_K, WALK_B, WALK_EF, WALK_S = 65536, 64, 1024, 50, 4096
 
 SRC = "instant_distance_tpu_torch/csrc/"
 JAX_KERNELS = "instant_distance_tpu/ops/scan_kernel.py"
@@ -67,7 +85,10 @@ KERNELS = {
                                      JAX_KERNELS + ":465"),
     "fused_scan_bucket": (SRC + "bucket_kernel.cu", JAX_KERNELS + ":117"),
     "fused_scan_bucket_int": (SRC + "bucket_kernel.cu", JAX_KERNELS + ":224"),
+    "walk_search": (SRC + "walk_kernel.cu",
+                    "instant_distance_tpu/ops/walk_kernel.py:358"),
     "fused_scan_topt": (SRC + "bucket_kernel.cu", JAX_KERNELS + ":642"),
+    "fused_scan_probe": (SRC + "scan_kernel.cu", JAX_KERNELS + ":538"),
 }
 
 
@@ -136,7 +157,16 @@ KERNEL_CASES = (
      _padded(N_POINTS, SCAN_CB), TOPT_LSUB, SCAN_CB, {"is_dot": True}),
     ("slice", "fused_scan_topt", 1000, DIM300, 65536, TOPT_LSUB, 4096,
      {"is_dot": False}),
+    # K6 at K1's ScanIndex batch shape; "mm" first, the record's case
+    ("scan batch mm", "fused_scan_probe", N_QUERIES, DIM,
+     _padded(N_POINTS, 8192 * 2), 64, 8192, {"probe": "mm", "inner": 2}),
+    ("scan batch min", "fused_scan_probe", N_QUERIES, DIM,
+     _padded(N_POINTS, 8192 * 2), 64, 8192, {"probe": "min", "inner": 2}),
+    ("scan batch full", "fused_scan_probe", N_QUERIES, DIM,
+     _padded(N_POINTS, 8192 * 2), 64, 8192, {"probe": "full", "inner": 2}),
 )
+#: Kernels whose operands are K1's (qc; w2, codes_t).
+_K1_OPERANDS = ("fused_scan_bucket_int_packed", "fused_scan_probe")
 
 
 def _operands(torch, tsk, dev, kernel, b, d, n, lsub, cb, opts):
@@ -153,7 +183,7 @@ def _operands(torch, tsk, dev, kernel, b, d, n, lsub, cb, opts):
     out = torch.rand((1, n), generator=g, device=dev) < 0.1
     out[0, min(n, N_POINTS) if n > N_POINTS else n - n // 16:] = True
     kw = dict(lsub=lsub, cb=cb)
-    if kernel == "fused_scan_bucket_int_packed":
+    if kernel in _K1_OPERANDS:
         norms[out] = torch.inf
         w2 = tsk.pack_w2(norms, torch.tensor(2 * 0.011 * 0.019, device=dev),
                          None, lsub=lsub, cb=cb, d=d)
@@ -176,7 +206,7 @@ def _call(tsk, kernel, rows, shared, kw, plain: bool = False):
     """The kernel (or its plain version) on (row operands, shared ones) in
     the wrapper's argument order."""
     fn = getattr(tsk, kernel + ("_plain" if plain else ""))
-    if kernel in ("fused_scan_bucket_int_packed", "fused_scan_bucket_int"):
+    if kernel in _K1_OPERANDS + ("fused_scan_bucket_int",):
         return fn(rows[0], shared[0], shared[1], **kw)
     return fn(rows[0], rows[1], *shared, **kw)
 
@@ -225,9 +255,25 @@ def _bound(b, d, n, rows, shared, out):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def _int_mm_ms(torch, qc, codes_t, iters: int) -> float:
+    """Device ms of torch._int_mm computing the whole int32 product
+    qc @ codes_t, over 65,536-column chunks (the whole [B, N] int32
+    product would not fit the card): the library yardstick of K6's "mm"
+    mode.  The port never calls it."""
+    codes_nd = codes_t.T.contiguous()          # [N, D]: chunks column-major
+    step = 65536
+
+    def lib():
+        for s in range(0, codes_nd.shape[0], step):
+            torch._int_mm(qc, codes_nd[s:s + step].t())
+
+    return _cuda_ms(torch, lib, iters)
+
+
 def phase_kernels(torch, tsk, dev):
     """Phase 3.  Returns {kernel: record of its first case}."""
     records = {}
+    times = {}
     for label, kernel, b, d, n, lsub, cb, opts in KERNEL_CASES:
         rows, shared, kw = _operands(torch, tsk, dev, kernel, b, d, n, lsub,
                                      cb, opts)
@@ -252,15 +298,119 @@ def phase_kernels(torch, tsk, dev):
         p1, k1, k2, p2 = (_cuda_ms(torch, f, iters)
                           for f in (plain, kern, kern, plain))
         ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        library_ms = (_int_mm_ms(torch, rows[0], shared[1], iters)
+                      if opts.get("probe") == "mm" else None)
+        times[(kernel, label)] = ms
         _phase("kernels", f"{kernel} {label} B={b} D={d} N={n} "
                f"{ {**kw, **opts} }: bit-exact; kernel {ms:.4f} ms, plain "
-               f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+               f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
+               + ("" if library_ms is None else
+                  f", torch._int_mm {library_ms:.4f} ms"))
         records.setdefault(kernel, dict(
             case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by))
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
         del rows, shared
         torch.cuda.empty_cache()
+    mm, mn, full = (times["fused_scan_probe", f"scan batch {p}"]
+                    for p in ("mm", "min", "full"))
+    k1 = times["fused_scan_bucket_int_packed", "scan batch"]
+    _phase("kernels", f"K1 attribution at the ScanIndex batch (K6): product "
+           f"{mm:.4f} ms, + min chain {mn - mm:.4f} ms, + key epilogue "
+           f"{full - mn:.4f} ms = full {full:.4f} ms; K1 {k1:.4f} ms")
     return records
+
+
+def _random_graph(torch, n: int, k: int, g, dev):
+    """[n, k] int32 adjacency of a random valid graph: each row a random
+    degree in [1, k] of distinct ids other than its own, ascending,
+    -1-terminated (the recipe of tests/test_walk_kernel.py, on the
+    card)."""
+    x = torch.randint(0, n - 1, (n, k), generator=g, device=dev)
+    x = x + (x >= torch.arange(n, device=dev)[:, None]).long()
+    x, _ = x.sort(dim=1)
+    keep = torch.ones_like(x, dtype=torch.bool)
+    keep[:, 1:] = x[:, 1:] != x[:, :-1]
+    deg = torch.randint(1, k + 1, (n, 1), generator=g, device=dev)
+    keep &= keep.cumsum(1) <= deg
+    x, _ = torch.where(keep, x, n).sort(dim=1)
+    return torch.where(x < n, x, -1).to(torch.int32)
+
+
+def _walk_bound(n_exp: int, n_scored: int, k: int, d: int, b: int,
+                ef: int):
+    """(bound ms, what bounds it) of one K4 call, from this run's work:
+    the K ids of each of the n_exp expanded rows and the D codes and
+    scale of each of their n_scored valid neighbours (the kernel never
+    reads a row's -1 tail), plus the queries and the beams in and out,
+    at the HBM rate; or 3 f32 operations per scored neighbour and d at
+    the f32 rate."""
+    nbytes = (n_exp * k * 4 + n_scored * (d + 4) + b * d * 4
+              + 2 * b * ef * 8)
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = 3 * n_scored * d / PEAK_F32_OPS
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
+
+
+def check_walk(torch, wk, what: str, args, kw, iters: int = 3):
+    """K4 against its plain version on the same operands: bit-exact,
+    both timed in turns.  Returns its record."""
+    got = wk.walk_search(*args, **kw)
+    *want, n_exp, n_scored = wk.walk_search_plain(*args, **kw,
+                                                  return_work=True)
+    torch.cuda.synchronize()
+    err = _max_err(torch, got, tuple(want))
+    if err != 0:
+        raise AssertionError(f"walk_search {what}: kernel differs from "
+                             f"plain by {err}")
+    b, d = args[0].shape
+    k = args[3].shape[1]
+    bound_ms, bound_by = _walk_bound(n_exp, n_scored, k, d, b, kw["ef"])
+
+    def kern():
+        wk.walk_search(*args, **kw)
+
+    def plain():
+        wk.walk_search_plain(*args, **kw)
+
+    p1, k1, k2, p2 = (_cuda_ms(torch, f, iters)
+                      for f in (plain, kern, kern, plain))
+    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    _phase("kernels", f"walk_search {what} B={b} D={d} {kw}: bit-exact; "
+           f"{n_exp} expansions, {n_scored} valid neighbours "
+           f"({n_scored / max(1, n_exp * k):.4f} of the slots); kernel "
+           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+           f"({bound_by})")
+    return dict(case=what, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def phase_walk(torch, dev):
+    """Phase 3, K4: a random valid graph of WALK_N nodes at D 128 and
+    300, seed-scan beams, both merges, expand 1 and 2.  Returns the
+    record of the first case."""
+    from instant_distance_tpu_torch.ops import packed as pk
+    from instant_distance_tpu_torch.ops import walk_kernel as wk
+
+    first = None
+    for d in (DIM, DIM300):
+        g = torch.Generator(device=dev).manual_seed(d)
+        pts = torch.randn((WALK_N, d), generator=g, device=dev)
+        zero = pk.pack_layer(_random_graph(torch, WALK_N, WALK_K, g, dev),
+                             *pk.quantize_points(pts))
+        queries = torch.randn((WALK_B, d), generator=g, device=dev)
+        beams = pk.seeded_beam(queries, pts[:WALK_S].to(torch.bfloat16),
+                               WALK_EF)
+        args = (queries, *beams, *zero)
+        for merge in wk.MERGES:
+            for expand in wk.EXPANDS:
+                kw = dict(expand=expand, ef=WALK_EF,
+                          max_iters=8 * WALK_EF + 16, merge=merge)
+                rec = check_walk(torch, wk, "random graph", args, kw)
+                first = first or rec
+        del pts, zero, queries, beams, args
+        torch.cuda.empty_cache()
+    return first
 
 
 # ---------------------------------------------------------------------------
@@ -373,6 +523,93 @@ def _search_path(torch, idt, launches, path, index, queries):
     return launches.run(path + " search", run)
 
 
+def _attribution(torch, tsk, launches, pts, queries):
+    """The attribution path: K6's three modes on the 1M x 128 ScanIndex
+    batch's own K1 operands (what ``bucket_pack`` builds), timed beside
+    K1 itself."""
+    lsub, cb, inner = SCAN_KW["lsub"], SCAN_KW["cb"], SCAN_KW["inner"]
+    codes_t, norms_r, sg = tsk.pack_operands(pts, cb * inner)
+    qc, qs = tsk.quantize_batch(queries)
+    w2 = tsk.pack_w2(norms_r, 2.0 * qs * sg, None, lsub=lsub, cb=cb,
+                     d=pts.shape[1])
+
+    def run():
+        ms = {p: _cuda_ms(torch, lambda: tsk.fused_scan_probe(
+            qc, w2, codes_t, lsub=lsub, cb=cb, inner=inner, probe=p), 3)
+            for p in ("mm", "min", "full")}
+        ms["K1"] = _cuda_ms(torch, lambda: tsk.fused_scan_bucket_int_packed(
+            qc, w2, codes_t, lsub=lsub, cb=cb), 3)
+        return ms
+
+    ms = launches.run("scan attribution", run)
+    launches.need("scan attribution", ["fused_scan_probe"])
+    _phase("scan attribution", f"B={qc.shape[0]} N={codes_t.shape[1]}: "
+           f"product {ms['mm']:.4f} ms, + min chain "
+           f"{ms['min'] - ms['mm']:.4f} ms, + key epilogue "
+           f"{ms['full'] - ms['min']:.4f} ms = full {ms['full']:.4f} ms; "
+           f"K1 {ms['K1']:.4f} ms")
+
+
+def _packed_path(torch, idt, launches, path, index, queries, *,
+                 plain_route: bool):
+    """The serving flow on a built index: PackedHnsw.from_index, then
+    search_batch_kernel (K4, both merges) on the whole query batch, K4
+    against its plain version at that very call (both merges) and, with
+    ``plain_route``, the plain-op search_batch at the same settings.
+    Returns (packed index, K4's record at the call with the default
+    merge, "count")."""
+    from instant_distance_tpu_torch.ops import packed as pk
+    from instant_distance_tpu_torch.ops import walk_kernel as wk
+
+    nq = N_BLOCKS * BLOCK
+    gt = idt.BruteForce(index.points).search_batch(queries[:nq], K)[1].cpu()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    packed = idt.PackedHnsw.from_index(index)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    codes_gb = packed.zero_pack[1].numel() / 1e9
+    _phase(path, f"from_index {len(packed)}x{packed.points.shape[1]} "
+           f"K={packed.zero_pack[0].shape[1]}: {pack_s:.2f} s, nbytes "
+           f"{packed.nbytes() / 1e9:.2f} GB ({codes_gb:.2f} GB zero-layer "
+           f"codes), peak memory {peak:.2f} GiB")
+
+    def serve(route, **kw):
+        def run():
+            d, p = route(queries, **PACKED_KW, **kw)
+            _check_results(torch, d, p, queries.shape[0], path)
+            recs = _recall_blocks(p[:nq].cpu(), gt)
+            t = _wall_s(torch, lambda: route(queries, **PACKED_KW, **kw), 3)
+            return recs, t
+
+        name = " ".join([path, route.__name__, *kw.values()])
+        recs, t = launches.run(name, run)
+        _phase(path, f"{route.__name__}({kw} {PACKED_KW}) batch "
+               f"{queries.shape[0]}: {queries.shape[0] / t:.1f} qps "
+               f"({t * 1e3:.2f} ms/batch), recall@10 blocks "
+               f"{[round(r, 4) for r in recs]}")
+        _check_recall(recs, name)
+        return name
+
+    for merge in wk.MERGES:
+        launches.need(serve(packed.search_batch_kernel, merge=merge),
+                      ["walk_search"])
+    if plain_route:
+        launches.need(serve(packed.search_batch), [], absent=["walk_search"])
+    ef = PACKED_KW["ef"]
+    beams = pk.seeded_beam(
+        queries, packed.points[:PACKED_KW["entry_seeds"]].to(torch.bfloat16),
+        ef)
+    records = [check_walk(
+        torch, wk, f"{path} call", (queries, *beams, *packed.zero_pack),
+        dict(expand=PACKED_KW["expand"], ef=ef,
+             max_iters=index.config.max_iter_factor * ef + 16, merge=merge))
+        for merge in wk.MERGES]
+    return packed, records[0]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--build-n", type=int, default=N_POINTS,
@@ -410,10 +647,11 @@ def main(argv=None) -> int:
 
     # -- 3. kernels vs plain ---------------------------------------------
     records = phase_kernels(torch, tsk, dev)
+    records["walk_search"] = phase_walk(torch, dev)
     launches = Launches(tsk)
     nq = N_BLOCKS * BLOCK
 
-    # -- 4. ScanIndex, bucket_pack, 1M x 128 -------------------------------
+    # -- 4. ScanIndex, bucket_pack, 1M x 128; the K6 attribution path ----
     t0 = time.perf_counter()
     data = synthetic_clustered(N_POINTS + N_QUERIES, DIM, n_clusters=10000,
                                seed=3)
@@ -427,6 +665,7 @@ def main(argv=None) -> int:
     _scan(torch, launches, "scan", scan, queries, gt, SCAN_KW)
     launches.need("scan", ["fused_scan_bucket_int_packed"])
     del scan
+    _attribution(torch, tsk, launches, pts, queries)
 
     # -- 5. HNSW build + search, 1M x 128 ----------------------------------
     bn = min(args.build_n, N_POINTS)
@@ -442,10 +681,30 @@ def main(argv=None) -> int:
            f"{BLOCK / t:.1f} qps, recall@10 blocks "
            f"{[round(r, 4) for r in recs]}")
     _check_recall(recs, "hnsw")
-    del index, pts, queries
+
+    # -- 6. the packed serving flow on that index ------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        fname = os.path.join(tmp, "index.npz")
+        t0 = time.perf_counter()
+        index.dump(fname)
+        dump_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        served = idt.Hnsw.load(fname)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        size_gb = os.path.getsize(fname) / 1e9
+    if not (torch.equal(served.zero, index.zero)
+            and torch.equal(served.points, index.points)):
+        raise AssertionError("packed: the loaded index differs")
+    _phase("packed", f"dump {size_gb:.2f} GB in {dump_s:.2f} s, Hnsw.load "
+           f"in {load_s:.2f} s")
+    del index
+    packed, records["walk_search"] = _packed_path(
+        torch, idt, launches, "packed", served, queries, plain_route=True)
+    del packed, served, pts, queries
     torch.cuda.empty_cache()
 
-    # -- 6. ScanIndex at 300-d: bucket_pack -> K3, cosine bucket / topt ----
+    # -- 7. ScanIndex at 300-d: bucket_pack -> K3, cosine bucket / topt ----
     t0 = time.perf_counter()
     data = synthetic_clustered(N_POINTS + N_QUERIES, DIM300,
                                n_clusters=10000, seed=5)
@@ -471,7 +730,7 @@ def main(argv=None) -> int:
     del scan
     torch.cuda.empty_cache()
 
-    # -- 7. HnswMap build + search, 1M x 300 (K2 in every wave) ------------
+    # -- 8. HnswMap build + search, 1M x 300 (K2 in every wave) ------------
     cfg = idt.Config(seed=5, m=32, wave_size=4096, ef_search=50)
     langs = ("en", "fr", "it")
     values = [f"{langs[i % 3]}word{i}_{langs[i % 3]}"
@@ -494,7 +753,16 @@ def main(argv=None) -> int:
            f"first {hits[0].value!r} at {hits[0].distance:.4f}")
     _check_recall(recs, "hnsw300")
 
-    # -- 8. the paths ran through every kernel -----------------------------
+    # -- 9. the packed serving form of the map, D = 300 -------------------
+    packed, _ = _packed_path(torch, idt, launches, "packed300", index,
+                             queries, plain_route=False)
+    d, p, vals = packed.search_batch_values(queries[:4], k=3)
+    if vals != [[index.values[i] for i in row] for row in p.cpu().tolist()]:
+        raise AssertionError("packed300: search_batch_values lost values")
+    _phase("packed300", f"search_batch_values -> {vals[0]}")
+    del packed
+
+    # -- 10. the paths ran through every kernel ----------------------------
     _phase("launches", "; ".join(
         f"{path}: { {k: v for k, v in c.items() if v} }"
         for path, c in launches.paths.items()))
@@ -508,7 +776,7 @@ def main(argv=None) -> int:
             "replaces": replaces, "launches": launches.total(kernel),
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": None,
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "case": rec["case"]})
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {

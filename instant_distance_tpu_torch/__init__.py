@@ -1,7 +1,8 @@
 """instant-distance-tpu on PyTorch: HNSW build and search on one NVIDIA GPU.
 
 A port of ``instant_distance_tpu`` (JAX/XLA/Pallas) to PyTorch, with the
-int8 scan kernels written by hand in CUDA for Hopper (``csrc/``).  The
+int8 scan kernels and the packed graph walk written by hand in CUDA for
+Hopper (``csrc/``).  The
 JAX package stays the reference: the port keeps its public names,
 arguments and results, and its tests hold each module against the JAX
 function on the same inputs.  It imports nothing of the JAX package.
@@ -9,8 +10,8 @@ function on the same inputs.  It imports nothing of the JAX package.
 Every index object lives on the device of the tensors it was built from
 (``index.device``); numpy inputs go to the ``device`` argument, the CUDA
 card by default (without a card they raise: pass ``device="cpu"`` or
-CPU tensors to run on the CPU).  On CPU tensors the scan kernels run
-their plain torch versions.
+CPU tensors to run on the CPU).  On CPU tensors the kernels run their
+plain torch versions.
 """
 
 import torch
@@ -37,6 +38,7 @@ __all__ = [
     "Neighbor",
     "BruteForce",
     "ScanIndex",
+    "PackedHnsw",
     "DEFAULT_M",
     "INVALID",
 ]
@@ -56,4 +58,8 @@ def __getattr__(name):
         from .models.scan import ScanIndex
 
         return ScanIndex
+    if name == "PackedHnsw":
+        from .models.packed import PackedHnsw
+
+        return PackedHnsw
     raise AttributeError(name)

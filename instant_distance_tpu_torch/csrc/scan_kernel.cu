@@ -29,6 +29,21 @@
 // reaches memory and each query writes N/lsub keys.  The dot itself is
 // the __dp4a tile of dp4a_tile.cuh, 4 x 4 registers a thread.
 // Tensor-core int8 (mma.sync / wgmma) and TMA staging are later work.
+//
+// The same kernel, cut short, is the timing probe K6 (replaces
+// instant_distance_tpu/ops/scan_kernel.py:_probe_kernel, called through
+// fused_scan_probe), the template parameter kProbe:
+//   kFull: K1's keys without groups (the production epilogue: a multiply,
+//          a subtract and a min per element, w2 read once per slab);
+//   kMin:  the same min chain over the raw dot (one min per element, no
+//          w2);
+//   kMm:   the product alone: od holds each cb block's slab-0 dot.  Every
+//          other slab's product stays live (the compiler would drop it
+//          otherwise and the probe would time 1/lsub of the products):
+//          each is an operand of an empty volatile asm, which costs no
+//          instruction.
+// Timing the three splits K1's time into product, min chain and key
+// epilogue.
 
 #include <climits>
 #include <cstdint>
@@ -47,6 +62,9 @@ using idt::kTL;
 constexpr int kTQ = 4;                   // queries per thread: 64 per block
 constexpr int kBQ = 16 * kTQ;
 
+enum Probe { kFull = 0, kMin = 1, kMm = 2 };
+
+template <int kProbe>
 __global__ void __launch_bounds__(kThreads)
 packed_scan_kernel(const int8_t* __restrict__ qc,
                    const int32_t* __restrict__ w2,
@@ -91,13 +109,25 @@ packed_scan_kernel(const int8_t* __restrict__ qc,
                        acc);
 #pragma unroll
     for (int j = 0; j < kTL; ++j) {
+      if (kProbe == kMm) {
+#pragma unroll
+        for (int i = 0; i < kTQ; ++i) {
+          if (t == 0) best[i][j] = acc[i][j];
+          else asm volatile("" ::"r"(acc[i][j]));
+        }
+        continue;
+      }
+      if (kProbe == kMin) {
+#pragma unroll
+        for (int i = 0; i < kTQ; ++i) best[i][j] = min(best[i][j], acc[i][j]);
+        continue;
+      }
       if (!e_ok[j]) continue;
       const int32_t wv = w2[e_base[j] + slab];
 #pragma unroll
       for (int i = 0; i < kTQ; ++i) best[i][j] = min(best[i][j], wv - acc[i][j] * lsub);
     }
   }
-
 #pragma unroll
   for (int i = 0; i < kTQ; ++i) {
     const int q = q0 + ty + 16 * i;
@@ -136,7 +166,7 @@ extern "C" int idt_packed_scan(const void* qc, const void* w2,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int ncol = n / lsub;
   const dim3 grid((ncol + kBL - 1) / kBL, (b + kBQ - 1) / kBQ);
-  packed_scan_kernel<<<grid, kThreads, 0, s>>>(
+  packed_scan_kernel<kFull><<<grid, kThreads, 0, s>>>(
       static_cast<const int8_t*>(qc), static_cast<const int32_t*>(w2),
       static_cast<const int8_t*>(codes_t), static_cast<int32_t*>(od), b, d,
       n, lsub, cb);
@@ -148,6 +178,28 @@ extern "C" int idt_packed_scan(const void* qc, const void* w2,
   group_min_kernel<<<blocks, threads, 0, s>>>(
       static_cast<const int32_t*>(od), static_cast<int32_t*>(og), b, ncol,
       cb / lsub, groups);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K6: probe 0 = full, 1 = min, 2 = mm (see the top of this file).
+extern "C" int idt_probe_scan(const void* qc, const void* w2,
+                              const void* codes_t, void* od, int b, int d,
+                              int n, int lsub, int cb, int probe,
+                              void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((n / lsub + kBL - 1) / kBL, (b + kBQ - 1) / kBQ);
+  const auto* q = static_cast<const int8_t*>(qc);
+  const auto* w = static_cast<const int32_t*>(w2);
+  const auto* c = static_cast<const int8_t*>(codes_t);
+  auto* o = static_cast<int32_t*>(od);
+  if (probe == kFull)
+    packed_scan_kernel<kFull><<<grid, kThreads, 0, s>>>(q, w, c, o, b, d, n, lsub, cb);
+  else if (probe == kMin)
+    packed_scan_kernel<kMin><<<grid, kThreads, 0, s>>>(q, w, c, o, b, d, n, lsub, cb);
+  else if (probe == kMm)
+    packed_scan_kernel<kMm><<<grid, kThreads, 0, s>>>(q, w, c, o, b, d, n, lsub, cb);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 

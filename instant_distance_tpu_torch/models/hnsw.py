@@ -3,8 +3,9 @@ of ``instant_distance_tpu/models/hnsw.py``).
 
 Same names, arguments and results as the JAX package, with torch tensors
 where it returns jax arrays.  An index lives on the device of the tensors
-it was built from (``index.device``).  Incremental ``add`` and
-``dump``/``load`` wait (ROADMAP.md §1 items 4-5).
+it was built from (``index.device``); ``load`` takes a ``device``
+(default: the CUDA card).  Incremental ``add`` waits (ROADMAP.md, still
+to port).
 """
 
 from __future__ import annotations
@@ -214,6 +215,25 @@ class Hnsw:
             return None
         return Neighbor(float(search._dists[i]), pid, None, self)
 
+    # -- persistence -------------------------------------------------------
+    def dump(self, fname: str, format: str = "native") -> None:
+        from ..utils import serialize
+
+        serialize.dump(self, fname, format=format)
+
+    @classmethod
+    def load(cls, fname: str, format: str = "auto", device=None,
+             **kw) -> "Hnsw":
+        """Load a dumped index onto ``device`` (default: the CUDA card).
+        Extra kwargs go to the format loader: for headerless bincode of
+        another shape, ``dims=``/``m=`` (``utils/serialize.load_bincode``)."""
+        from ..utils import serialize
+
+        obj = serialize.load(fname, format=format, device=device, **kw)
+        if not isinstance(obj, Hnsw) or isinstance(obj, HnswMap):
+            raise ValueError(f"{fname} does not contain a plain Hnsw")
+        return obj
+
 
 class HnswMap(Hnsw):
     """Hnsw with values attached to points; ``values[pid]`` is the value
@@ -256,3 +276,14 @@ class HnswMap(Hnsw):
         if item is not None:
             item.value = self.values[item.pid]
         return item
+
+    @classmethod
+    def load(cls, fname: str, format: str = "auto", device=None,
+             **kw) -> "HnswMap":
+        """Load a dumped map (arguments as :meth:`Hnsw.load`)."""
+        from ..utils import serialize
+
+        obj = serialize.load(fname, format=format, device=device, **kw)
+        if not isinstance(obj, HnswMap):
+            raise ValueError(f"{fname} does not contain an HnswMap")
+        return obj

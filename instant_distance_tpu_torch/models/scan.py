@@ -24,6 +24,7 @@ Candidate selection is exact ``torch.topk`` where the JAX package used
 
 from __future__ import annotations
 
+import json
 from typing import Any, Optional, Sequence
 
 import numpy as np
@@ -42,6 +43,7 @@ from ..ops.sort import sort2
 from ..utils.convert import as_tensor
 
 _I32MAX = np.iinfo(np.int32).max
+_MAGIC = "instant-distance-tpu/scan/v1"
 
 
 def _quantize_queries(queries):
@@ -410,3 +412,50 @@ class ScanIndex:
         vals = [[self.values[j] if j >= 0 else None for j in row]
                 for row in i.cpu().tolist()]
         return d, i, vals
+
+    # -- persistence ---------------------------------------------------------
+    def dump(self, fname: str) -> None:
+        """Save the serving arrays (codes/scales/norms + f32 points for
+        the exact rerank) as one npz, in the JAX package's format."""
+        arrays = dict(
+            magic=np.array(_MAGIC),
+            metric=np.array(self.metric_name),
+            chunk=np.array(self.chunk, np.int64),
+            points=self.points.float().cpu().numpy(),
+            store_dtype=np.array(str(self.points.dtype).split(".")[-1]),
+            codes=self.codes.cpu().numpy(),
+            scales=self.scales.cpu().numpy(),
+            norms=self.norms.cpu().numpy(),
+        )
+        if self.values is not None:
+            arrays["values"] = np.array(json.dumps(list(self.values)))
+        if self._alive is not None:
+            arrays["alive"] = self._alive.cpu().numpy()
+        with open(fname, "wb") as f:
+            np.savez(f, **arrays)
+
+    @classmethod
+    def load(cls, fname: str, device=None) -> "ScanIndex":
+        """Load a dump onto ``device`` (default: the CUDA card)."""
+        with np.load(fname, allow_pickle=False) as z:
+            if str(z["magic"]) != _MAGIC:
+                raise ValueError(f"{fname}: not a ScanIndex dump")
+            obj = cls.__new__(cls)
+            obj.metric_name = str(z["metric"])
+            obj.chunk = int(z["chunk"])
+            points = as_tensor(z["points"], device)
+            obj.device = points.device
+            obj.points = points.to(torch_dtype(
+                str(z["store_dtype"]) if "store_dtype" in z.files
+                else "float32"))
+            obj.codes = as_tensor(z["codes"], obj.device)
+            obj.scales = as_tensor(z["scales"], obj.device)
+            obj.norms = as_tensor(z["norms"], obj.device)
+            obj.values = (json.loads(str(z["values"]))
+                          if "values" in z.files else None)
+            obj._alive = (as_tensor(z["alive"], obj.device, torch.bool)
+                          if "alive" in z.files else None)
+            obj._fused = {}
+            obj._fused_int = {}
+            obj.config = Config(metric=obj.metric_name)
+            return obj

@@ -47,9 +47,27 @@ def greedy_descent(queries, adj, points, metric: Metric, cur_d, cur_p,
     return cur_d, cur_p
 
 
-def _mask_eligible(d, p, eligible):
-    ok = (p >= 0) & eligible[p.clamp(min=0)]
+def mask_eligible(d, p, eligible):
+    """(d, p) with entries whose pid is not ``eligible`` set to (inf, -1)."""
+    ok = (p >= 0) & eligible[p.clamp(min=0).long()]
     return torch.where(ok, d, torch.inf), torch.where(ok, p, -1)
+
+
+def chosen_slots(bp, be, e_n: int):
+    """One step's wavefront: ``(chosen [B, ef] bool, cur [B, e_n]
+    int32)``, the first ``e_n`` unexpanded valid slots of each sorted
+    beam and their pids in beam order, -1 where a beam has fewer."""
+    b, ef = bp.shape
+    exp = (bp >= 0) & ~be
+    rank = exp.cumsum(1) - 1
+    chosen = exp & (rank < e_n)
+    slot = torch.arange(ef, dtype=torch.int32, device=bp.device).expand(b, -1)
+    # column e_n is the drop column of JAX's scatter(mode="drop")
+    sel = torch.full((b, e_n + 1), -1, dtype=torch.int32, device=bp.device)
+    sel.scatter_(1, torch.where(chosen, rank, e_n), slot)
+    sel = sel[:, :e_n]
+    cur = torch.where(sel >= 0, bp.gather(1, sel.clamp(min=0).long()), -1)
+    return chosen, cur
 
 
 def beam_search_layer(queries, adj, points, metric: Metric,
@@ -69,26 +87,16 @@ def beam_search_layer(queries, adj, points, metric: Metric,
     e_n = max(1, min(expand, ef))
     ek = e_n * row_width
     col = torch.arange(row_width, device=dev).view(1, 1, -1)
-    slot = torch.arange(ef, dtype=torch.int32, device=dev).expand(b, -1)
     tril = torch.ones((ek, ek), dtype=torch.bool, device=dev).tril(-1)
     filtered = eligible is not None
     bd, bp, be = beam_d, beam_p, beam_e
     if filtered:
-        rd, rp = sort2(*_mask_eligible(bd, bp, eligible))
+        rd, rp = sort2(*mask_eligible(bd, bp, eligible))
 
     for _ in range(max_iters):
-        exp = (bp >= 0) & ~be
-        if not bool(exp.any()):
+        if not bool(((bp >= 0) & ~be).any()):
             break
-        rank = exp.cumsum(1) - 1
-        chosen = exp & (rank < e_n)
-        # slots of the e_n nearest unexpanded entries (the beam is
-        # sorted); column e_n is the drop column of JAX's mode="drop"
-        sel = torch.full((b, e_n + 1), -1, dtype=torch.int32, device=dev)
-        sel.scatter_(1, torch.where(chosen, rank, e_n), slot)
-        sel = sel[:, :e_n]
-        cur = torch.where(sel >= 0, bp.gather(1, sel.clamp(min=0).long()),
-                          -1)
+        chosen, cur = chosen_slots(bp, be, e_n)
         be = be | chosen
         nb = adj[cur.clamp(min=0)]                              # [B, E, K]
         nvalid = (nb >= 0) & (cur >= 0)[:, :, None] & (col < links)
@@ -103,7 +111,7 @@ def beam_search_layer(queries, adj, points, metric: Metric,
         if filtered:
             # a node pruned from the traversal beam can be re-proposed
             # later, so the result beam dedups against its own members
-            fd, fp = _mask_eligible(nd, nb, eligible)
+            fd, fp = mask_eligible(nd, nb, eligible)
             dup_r = ((fp[:, :, None] == rp[:, None, :])
                      & (rp >= 0)[:, None, :]).any(2)
             fd = torch.where(dup_r, torch.inf, fd)

@@ -20,6 +20,9 @@ points ``p = (o // ct) * cb + t * ct + o % ct`` for t < lsub, ct = cb // lsub.
   ``w - dot``, their min and argmin per group.
 * K5 :func:`fused_scan_topt`: K2's group minima, then the ``topt`` best
   of each cb block per query.
+* K6 :func:`fused_scan_probe`: K1 cut short for timing (``mm``: the
+  product alone, ``min``: the min chain over the raw dot, ``full``: K1's
+  keys), so the three times split K1's into its stages.
 
 Each wrapper launches its hand-written CUDA kernel (``csrc/``) on CUDA
 tensors and counts the launch in :data:`launches`; on CPU tensors it
@@ -41,9 +44,10 @@ PACK_THRESH = 9 << 27
 PACK_OFFSET = 1 << 23
 
 #: Kernel launches so far, per wrapper (CUDA only; the plain versions do
-#: not count).
+#: not count).  ``walk_search`` is K4's (``ops/walk_kernel.py``).
 launches = {"fused_scan_bucket_int_packed": 0, "fused_scan_bucket": 0,
-            "fused_scan_bucket_int": 0, "fused_scan_topt": 0}
+            "fused_scan_bucket_int": 0, "fused_scan_topt": 0,
+            "walk_search": 0, "fused_scan_probe": 0}
 #: K3's ids are -1 where the group's rank is at least this (the JAX
 #: kernel's ``big // 2``, big = INT32_MAX // 2).
 INT_RANK_LIMIT = (_I32MAX // 2) // 2
@@ -499,3 +503,73 @@ def fused_scan_topt(qc, qs, codes_t, scales, norms, *, lsub: int = 16,
                 _ptr(codes_t), _ptr(scales), _ptr(norms), _ptr(od),
                 _ptr(oi), b, d, n, lsub, cb, topt, int(is_dot))
     return od, oi
+
+
+# ---------------------------------------------------------------------------
+# K6: the timing probe
+# ---------------------------------------------------------------------------
+
+#: K6's cut points, in the C entry point's numbering.
+PROBES = ("full", "min", "mm")
+
+
+def _check_probe(qc, w2, codes_t, lsub: int, cb: int, inner: int,
+                 probe: str) -> None:
+    _check(qc, w2, codes_t, lsub, cb, 0)
+    if probe not in PROBES:
+        raise ValueError(f"probe must be one of {PROBES}, got {probe!r}")
+    if inner < 1 or codes_t.shape[1] % (cb * inner):
+        raise ValueError(f"need cb * inner | N, got cb={cb} inner={inner} "
+                         f"N={codes_t.shape[1]}")
+
+
+def fused_scan_probe_plain(qc, w2, codes_t, *, lsub: int = 64,
+                           cb: int = 8192, inner: int = 1,
+                           probe: str = "full"):
+    """Plain torch version of :func:`fused_scan_probe`."""
+    _check_probe(qc, w2, codes_t, lsub, cb, inner, probe)
+    if probe == "full":
+        return fused_scan_bucket_int_packed_plain(qc, w2, codes_t,
+                                                  lsub=lsub, cb=cb)
+    b = qc.shape[0]
+    n = codes_t.shape[1]
+    dot = int8_matmul(qc, codes_t).view(b, n // cb, lsub, cb // lsub)
+    out = dot[:, :, 0] if probe == "mm" else dot.amin(dim=2)
+    return out.reshape(b, -1)
+
+
+def fused_scan_probe(qc, w2, codes_t, *, lsub: int = 64, cb: int = 8192,
+                     inner: int = 1, probe: str = "full"):
+    """Timing probe of K1 (kernel K6), operands as
+    :func:`fused_scan_bucket_int_packed`'s.  Returns ``od [B, N/lsub]``
+    int32, laid out as K1's keys:
+
+    * ``"full"``: K1's keys (no groups), equal to K1's bit for bit;
+    * ``"min"``:  per stride group the min of the raw int32 dot;
+    * ``"mm"``:   the dot of each group's slab-0 point; on the card every
+      slab's product is still computed, as the TPU's matrix unit computes
+      the whole block.
+
+    ``inner`` is accepted only for parity with the JAX signature (its
+    sub-block count); neither the kernel nor the output depends on it,
+    and it only has to divide N / cb.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    or raise.
+    """
+    tensors = (qc, w2, codes_t)
+    if not _on_card(tensors):
+        return fused_scan_probe_plain(qc, w2, codes_t, lsub=lsub, cb=cb,
+                                      inner=inner, probe=probe)
+    _check_probe(qc, w2, codes_t, lsub, cb, inner, probe)
+    b, d = qc.shape
+    n = codes_t.shape[1]
+    if b > 65535 * 64:
+        raise ValueError(f"batch {b} exceeds the kernel grid")
+    dev = qc.device
+    od = torch.empty((b, n // lsub), dtype=torch.int32, device=dev)
+    if b and n:
+        _launch("fused_scan_probe", "idt_probe_scan", dev, _ptr(qc),
+                _ptr(w2), _ptr(codes_t), _ptr(od), b, d, n, lsub, cb,
+                PROBES.index(probe))
+    return od

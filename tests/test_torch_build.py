@@ -72,6 +72,7 @@ from instant_distance_tpu_torch.utils import metrics as tmetrics
 from instant_distance_tpu_torch.utils.convert import (as_tensor,
                                                        hnsw_from_arrays,
                                                        scan_from_points)
+from test_torch_packed import check_cpu as check_packed_path
 
 # Tiny shapes: more threads only add synchronisation under a parallel run.
 torch.set_num_threads(1)
@@ -259,9 +260,10 @@ def _check_sort2_ties():
 
 def _check_runs_without_jax():
     """The port imports nothing of JAX or the JAX package: a tiny CPU
-    build (K1 and K2 routes), graph search and kernel-path scans succeed
-    with ``jax`` and ``instant_distance_tpu`` blocked, and so do the
-    dataset and recall helpers that chip_smoke.py imports."""
+    build (K1 and K2 routes), graph search, kernel-path scans, and a
+    dump, load, pack and packed search (both routes) succeed with
+    ``jax`` and ``instant_distance_tpu`` blocked, and so do the dataset
+    and recall helpers that chip_smoke.py imports."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = sys.modules['instant_distance_tpu'] = None\n"
@@ -279,6 +281,17 @@ def _check_runs_without_jax():
         "    d, i = t.ScanIndex(pts, device='cpu').search_batch(\n"
         "        pts[:4], k=3, fused=fused, lsub=8, cb=64)\n"
         "    assert (i[:, 0].numpy() == np.arange(4)).all(), fused\n"
+        "import os, tempfile\n"
+        "with tempfile.TemporaryDirectory() as tmp:\n"
+        "    f = os.path.join(tmp, 'p.npz')\n"
+        "    idx.dump(f)\n"
+        "    pk = t.PackedHnsw.from_index(t.Hnsw.load(f, device='cpu'))\n"
+        "    pk.dump(f)\n"
+        "    pk = t.PackedHnsw.load(f, device='cpu')\n"
+        "q = idx.points[:4]\n"
+        "for p in (pk.search_batch(q, k=3)[1],\n"
+        "          pk.search_batch_kernel(q, k=3, entry_seeds=64)[1]):\n"
+        "    assert (p[:, 0].numpy() == np.arange(4)).all()\n"
         "loaded = {m.split('.')[0] for m in sys.modules\n"
         "          if sys.modules[m] is not None}\n"
         "assert not loaded & {'jax', 'instant_distance_tpu'}, loaded\n"
@@ -384,6 +397,7 @@ def test_build_and_search_match_jax():
     for variant in SEARCH_VARIANTS:
         _check_search(arrays, queries, variant)
     _check_map_api(arrays, queries)
+    check_packed_path(arrays, queries)
 
     _check_k2_builds()
     _check_reverse_grouping()

@@ -1,14 +1,16 @@
-"""The CUDA scan kernels against their plain torch versions.
+"""The CUDA kernels against their plain torch versions.
 
 Needs a CUDA card (marker ``gpu``; skipped elsewhere).  Imports no JAX,
 so it runs on a machine that has only PyTorch:
 
     python -m pytest -m gpu --noconftest tests/test_torch_gpu.py
 
-Tolerance: none.  K1 and K3 are integer kernels; K2 and K5 round every
-f32 operation in the plain version's order, so distances and ids are
-bit-exact too.  Each case also checks that the wrapper counted one
-launch.  One test item, for the reason given in tests/test_torch_scan.py.
+Tolerance: none.  K1, K3 and K6 are integer kernels; K2, K4 and K5
+round every f32 operation in the plain version's order, so distances
+and ids are bit-exact too.  Each case also checks that the wrapper
+counted one launch.  One test item, for the reason given in
+tests/test_torch_scan.py; the K4 and K6 checks live in
+tests/test_torch_packed.py (``check_card``).
 """
 
 import numpy as np
@@ -16,6 +18,7 @@ import pytest
 import torch
 
 from instant_distance_tpu_torch.ops import scan_kernel as tsk
+from test_torch_packed import check_card as check_packed_kernels
 
 pytestmark = pytest.mark.gpu
 
@@ -159,3 +162,4 @@ def test_kernel_matches_plain(cuda):
     _check_packed(cuda)
     _check_bucket(cuda)
     _check_malformed(cuda)
+    check_packed_kernels(cuda)
