@@ -6,15 +6,22 @@ repo's real configurations, and holds every CUDA kernel of those paths
 against its plain torch version:
 
   1. device   — needs CUDA; prints the card's name and power limit;
-  2. build    — compiles csrc/*.cu (one nvcc per source, in parallel);
+  2. build    — compiles csrc/*.cu (one nvcc per source, in parallel),
+                prints each kernel's registers and spills (ptxas) and its
+                tensor-core and __dp4a instruction counts (cuobjdump
+                -sass), and fails unless K1/K6 and K2 run on the int8
+                tensor cores with no __dp4a;
   3. kernels  — each kernel (K1 packed keys, K2 bucket, K3 bucket_int,
                 K5 topt, K4 walk, K6 probe in its three modes) vs its
                 plain version on random inputs from a seeded generator on
                 the card: a slice, then the paths' own call shapes (K4 on
                 a random valid graph of 65,536 nodes, K = 64, D 128 and
                 300, both merges, expand 1 and 2); results bit-exact,
-                both timed with CUDA events in turns; torch._int_mm on
-                K1's product as the yardstick of K6's "mm" mode;
+                both timed with CUDA events in turns, each scan with its
+                TOP/s and its share of the bound; torch._int_mm on K1's
+                product as the yardstick of K6's "mm" mode; K6 also at
+                K2's 300-d build wave shape, which splits K2's time into
+                the tile's product and K2's f32 epilogue;
   4. scan     — ScanIndex(fused="bucket_pack") over SIFT1M-shaped data
                 (1M x 128), an 8192-query batch: qps, recall@10 vs
                 BruteForce (K1); then the attribution path: K6's three
@@ -51,8 +58,10 @@ JSON object each.  Run from the repository root:
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -76,6 +85,12 @@ PEAK_INT8_OPS, PEAK_F32_OPS, PEAK_BYTES = 1979e12, 67e12, 3.35e12
 PACKED_KW = dict(k=K, ef=50, entry_seeds=8192, expand=2)
 #: K4's random-graph cases: nodes, neighbours per row, batch, ef, seeds.
 WALK_N, WALK_K, WALK_B, WALK_EF, WALK_S = 65536, 64, 1024, 50, 4096
+
+#: Kernels whose product runs on the int8 tensor cores (K1 with K6, and
+#: K2): the build phase fails if their machine code holds no IMMA/IGMMA
+#: or any __dp4a (IDP.4A).  Mangled, a template kernel's name is its
+#: length, the name and "I" (its template arguments follow).
+TENSOR_CORE_KERNELS = ("18packed_scan_kernelI", "13bucket_kernelI")
 
 SRC = "instant_distance_tpu_torch/csrc/"
 JAX_KERNELS = "instant_distance_tpu/ops/scan_kernel.py"
@@ -127,6 +142,64 @@ def _wall_s(torch, fn, iters: int = 5) -> float:
 
 
 # ---------------------------------------------------------------------------
+# phase 2: what the build made
+# ---------------------------------------------------------------------------
+
+def _ptxas_summary(log: str) -> list:
+    """One "kernel: registers, spills" entry per entry function of nvcc's
+    ``-Xptxas -v`` report."""
+    out, fn, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = f"spills {m.group(1)}/{m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out.append(f"{fn}: {m.group(1)} registers, {spill}")
+            fn, spill = None, ""
+    return out
+
+
+def _sass_check(build) -> list:
+    """Tensor-core (IMMA, HMMA, IGMMA, HGMMA) and __dp4a (IDP.4A)
+    instruction counts of every kernel in the built libraries, from
+    ``cuobjdump -sass``.  Raises if a kernel of TENSOR_CORE_KERNELS lacks
+    tensor-core instructions or holds a __dp4a."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = os.path.join(CUDA_HOME, "bin", "cuobjdump")
+    counts = {}
+    for src in build._sources():
+        sass = subprocess.run([tool, "-sass", build.library_path(src)],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        fn = None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                counts[fn] = collections.Counter()
+                continue
+            m = re.search(r"\b(IMMA|HMMA|IGMMA|HGMMA|IDP\.?4A)[.\w]*", line)
+            if m and fn:
+                counts[fn][m.group(0)] += 1
+    lines = []
+    for fn, c in counts.items():
+        tc = sum(v for k, v in c.items() if "MMA" in k)
+        dp4a = sum(v for k, v in c.items() if "IDP" in k)
+        if any(k in fn for k in TENSOR_CORE_KERNELS) and (not tc or dp4a):
+            raise AssertionError(f"{fn}: {dict(c)} (want tensor-core "
+                                 "instructions and no IDP.4A)")
+        if c:
+            lines.append(f"{fn}: {dict(c)}")
+    return lines
+
+
+# ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -164,6 +237,12 @@ KERNEL_CASES = (
      _padded(N_POINTS, 8192 * 2), 64, 8192, {"probe": "min", "inner": 2}),
     ("scan batch full", "fused_scan_probe", N_QUERIES, DIM,
      _padded(N_POINTS, 8192 * 2), 64, 8192, {"probe": "full", "inner": 2}),
+    # K6 at K2's 300-d build wave shape: the same tile's product and min
+    # chain without K2's f32 epilogue, so K2's time splits too
+    ("K2 build wave mm", "fused_scan_probe", 4096, DIM300,
+     _padded(N_POINTS, BUILD_CB), BUILD_LSUB, BUILD_CB, {"probe": "mm"}),
+    ("K2 build wave min", "fused_scan_probe", 4096, DIM300,
+     _padded(N_POINTS, BUILD_CB), BUILD_LSUB, BUILD_CB, {"probe": "min"}),
 )
 #: Kernels whose operands are K1's (qc; w2, codes_t).
 _K1_OPERANDS = ("fused_scan_bucket_int_packed", "fused_scan_probe")
@@ -298,12 +377,16 @@ def phase_kernels(torch, tsk, dev):
         p1, k1, k2, p2 = (_cuda_ms(torch, f, iters)
                           for f in (plain, kern, kern, plain))
         ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        # the yardstick of K6's record case (torch._int_mm needs D % 8 == 0)
         library_ms = (_int_mm_ms(torch, rows[0], shared[1], iters)
-                      if opts.get("probe") == "mm" else None)
+                      if opts.get("probe") == "mm" and kernel not in records
+                      else None)
         times[(kernel, label)] = ms
         _phase("kernels", f"{kernel} {label} B={b} D={d} N={n} "
-               f"{ {**kw, **opts} }: bit-exact; kernel {ms:.4f} ms, plain "
-               f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
+               f"{ {**kw, **opts} }: bit-exact; kernel {ms:.4f} ms "
+               f"({2 * b * n * d / ms / 1e9:.1f} TOP/s, "
+               f"{bound_ms / ms:.2%} of the bound), plain {plain_ms:.4f} ms, "
+               f"bound {bound_ms:.4f} ms ({bound_by})"
                + ("" if library_ms is None else
                   f", torch._int_mm {library_ms:.4f} ms"))
         records.setdefault(kernel, dict(
@@ -317,6 +400,12 @@ def phase_kernels(torch, tsk, dev):
     _phase("kernels", f"K1 attribution at the ScanIndex batch (K6): product "
            f"{mm:.4f} ms, + min chain {mn - mm:.4f} ms, + key epilogue "
            f"{full - mn:.4f} ms = full {full:.4f} ms; K1 {k1:.4f} ms")
+    mm, mn = (times["fused_scan_probe", f"K2 build wave {p}"]
+              for p in ("mm", "min"))
+    k2 = times["fused_scan_bucket", "build wave"]
+    _phase("kernels", f"K2 attribution at the 300-d build wave (K6 at its "
+           f"shape): product {mm:.4f} ms, + min chain {mn - mm:.4f} ms, + "
+           f"K2's f32 epilogue and argmin {k2 - mn:.4f} ms = K2 {k2:.4f} ms")
     return records
 
 
@@ -640,10 +729,11 @@ def main(argv=None) -> int:
     # -- 2. kernel build -------------------------------------------------
     t0 = time.perf_counter()
     _build.library()
-    ptxas = [ln.strip() for ln in _build.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
     _phase("build", f"{time.perf_counter() - t0:.2f} s "
-           f"(nvcc {_build.build_seconds:.2f} s); {' | '.join(ptxas)}")
+           f"(nvcc {_build.build_seconds:.2f} s); ptxas: "
+           + (" | ".join(_ptxas_summary(_build.build_log))
+              or "none (the libraries were built before)"))
+    _phase("build", "sass: " + " | ".join(_sass_check(_build)))
 
     # -- 3. kernels vs plain ---------------------------------------------
     records = phase_kernels(torch, tsk, dev)

@@ -29,26 +29,35 @@
 //       minimum is not finite.
 //
 // What bounds them on an H100: the int8 multiply-adds (2 * B * N * D
-// operations) at the path's shapes; K2/K3 also write [B, N/lsub] f32/i32
-// pairs (1-2 GB at the smoke's shapes), which the multiply-adds outweigh.
+// operations, ~1.2 ms of the tensor cores' peak at K2's build wave) at
+// the path's shapes; K2/K3 also write [B, N/lsub] f32/i32 pairs (1-2 GB
+// at the smoke's shapes, ~0.3-0.6 ms at HBM rate).  Once K2's product
+// runs on tensor cores, its epilogue (about nine CUDA-core operations an
+// element, one of them the int-to-float conversion) is of the same order.
 //
-// What the design does about it: the dot tile of dp4a_tile.cuh (__dp4a
-// on four int8 at a time), with the running min and argmin held in
-// registers across the lsub slabs, so the [B, N] distance tile never
-// reaches memory.  K2/K3 blocks own 64 queries x 64 stride groups, as K1.
-// K5's top-T needs all cb / lsub group minima of a cb block for a query,
-// so its blocks own 32 queries x one whole cb block: the minima go to
-// shared memory and 8 threads a query run the topt extraction rounds
-// there.  Tensor cores and TMA staging are later work.
+// What the design does about it.  K2 runs on the int8 tensor-core tile
+// of mma_tile.cuh (mma.sync m16n8k32, the query tile staged once per
+// block, code tiles with their scales and norms rows double-buffered with
+// cp.async and transposed in shared memory, query blocks fastest in the
+// grid); its blocks own 128 queries x 64 stride groups and keep the
+// running min and argmin beside the accumulators in registers across the
+// lsub slabs, so the [B, N] distance tile never reaches memory.  K3 and
+// K5 still run on the dot tile of dp4a_tile.cuh (__dp4a on four int8 at
+// a time), min and argmin in registers likewise; K3's blocks own 64
+// queries x 64 stride groups.  K5's top-T needs all cb / lsub group
+// minima of a cb block for a query, so its blocks own 32 queries x one
+// whole cb block: the minima go to shared memory and 8 threads a query
+// run the topt extraction rounds there.  Tensor cores and TMA staging
+// for K3 and K5 are later work.
 
 #include <climits>
 #include <cmath>
 #include <cstdint>
-#include <type_traits>
 
 #include <cuda_runtime.h>
 
 #include "dp4a_tile.cuh"
+#include "mma_tile.cuh"
 
 namespace {
 
@@ -56,10 +65,11 @@ using idt::DotTiles;
 using idt::kBL;
 using idt::kThreads;
 using idt::kTL;
+namespace mma = idt::mma;
 
-enum Epilogue { kL2 = 0, kDot = 1, kInt = 2 };
+enum Epilogue { kL2 = 0, kDot = 1 };
 
-constexpr int kTQ = 4;                   // K2/K3: 64 queries per block
+constexpr int kTQ = 4;                   // K3: 64 queries per block
 constexpr int kBQ = 16 * kTQ;
 constexpr int kTQTopt = 2;               // K5: 32 queries per block
 constexpr int kBQTopt = 16 * kTQTopt;
@@ -96,20 +106,13 @@ __device__ __forceinline__ void min_update(int32_t v, int t, int32_t& best,
   }
 }
 
-// K2 (E = kL2 / kDot) and K3 (E = kInt): one block owns kBQ queries x kBL
-// stride groups.
-template <Epilogue E>
+// K3: one block owns kBQ queries x kBL stride groups.
 __global__ void __launch_bounds__(kThreads)
-bucket_kernel(const int8_t* __restrict__ qc, const float* __restrict__ qs,
-              const int8_t* __restrict__ codes_t,
-              const float* __restrict__ scales,
-              const float* __restrict__ norms,
-              const int32_t* __restrict__ w,
-              typename std::conditional<E == kInt, int32_t, float>::type*
-                  __restrict__ od,
-              int32_t* __restrict__ oi, int b, int d, int n, int lsub,
-              int cb) {
-  using V = typename std::conditional<E == kInt, int32_t, float>::type;
+bucket_int_kernel(const int8_t* __restrict__ qc,
+                  const int8_t* __restrict__ codes_t,
+                  const int32_t* __restrict__ w, int32_t* __restrict__ od,
+                  int32_t* __restrict__ oi, int b, int d, int n, int lsub,
+                  int cb) {
   __shared__ DotTiles<kTQ> sm;
 
   const int ct = cb / lsub;
@@ -132,24 +135,14 @@ bucket_kernel(const int8_t* __restrict__ qc, const float* __restrict__ qs,
     e_ok[j] = o < ncol;
     e_base[j] = e_ok[j] ? idt::slab0_point(o, ct, cb) : 0;
   }
-  float qsv[kTQ];
-#pragma unroll
-  for (int i = 0; i < kTQ; ++i) {
-    const int q = q0 + ty + 16 * i;
-    qsv[i] = (E != kInt && q < b) ? qs[q] : 0.0f;
-  }
 
-  V best[kTQ][kTL];
+  int32_t best[kTQ][kTL];
   int am[kTQ][kTL];
 #pragma unroll
   for (int i = 0; i < kTQ; ++i)
 #pragma unroll
     for (int j = 0; j < kTL; ++j) {
-      if constexpr (E == kInt) {
-        best[i][j] = INT_MAX;
-      } else {
-        best[i][j] = INFINITY;
-      }
+      best[i][j] = INT_MAX;
       am[i][j] = 0;
     }
 
@@ -161,21 +154,11 @@ bucket_kernel(const int8_t* __restrict__ qc, const float* __restrict__ qs,
 #pragma unroll
     for (int j = 0; j < kTL; ++j) {
       if (!e_ok[j]) continue;
-      const long long p = e_base[j] + slab;
-      if constexpr (E == kInt) {
-        const uint32_t wv = static_cast<uint32_t>(w[p]);
+      const uint32_t wv = static_cast<uint32_t>(w[e_base[j] + slab]);
 #pragma unroll
-        for (int i = 0; i < kTQ; ++i)
-          min_update(static_cast<int32_t>(wv - static_cast<uint32_t>(acc[i][j])),
-                     t, best[i][j], am[i][j]);
-      } else {
-        const float s = scales[p];
-        const float nm = norms[p];
-#pragma unroll
-        for (int i = 0; i < kTQ; ++i)
-          min_update(f32_value<E>(qsv[i], s, nm, acc[i][j]), t, best[i][j],
-                     am[i][j]);
-      }
+      for (int i = 0; i < kTQ; ++i)
+        min_update(static_cast<int32_t>(wv - static_cast<uint32_t>(acc[i][j])),
+                   t, best[i][j], am[i][j]);
     }
   }
 
@@ -186,19 +169,86 @@ bucket_kernel(const int8_t* __restrict__ qc, const float* __restrict__ qs,
 #pragma unroll
     for (int j = 0; j < kTL; ++j) {
       if (!e_ok[j]) continue;
-      const int o = o0 + tx + 16 * j;
-      const long long idx = static_cast<long long>(q) * ncol + o;
-      bool ok;
-      if constexpr (E == kInt) {
-        ok = best[i][j] < kIntLimit;
-      } else {
-        ok = isfinite(best[i][j]);
-      }
+      const long long idx = static_cast<long long>(q) * ncol + o0 + tx + 16 * j;
       od[idx] = best[i][j];
-      oi[idx] = ok ? static_cast<int32_t>(e_base[j] + static_cast<long long>(am[i][j]) * ct)
-                   : -1;
+      oi[idx] = best[i][j] < kIntLimit
+                    ? static_cast<int32_t>(e_base[j] + static_cast<long long>(am[i][j]) * ct)
+                    : -1;
     }
   }
+}
+
+// K2 (E = kL2 / kDot) on the int8 tensor-core tile of mma_tile.cuh: one
+// block owns 128 queries x 64 stride groups; each thread keeps the
+// running min and argmin slab of its accumulator fragment's (query,
+// group) pairs in registers.
+template <Epilogue E>
+__global__ void __launch_bounds__(mma::kThreads)
+bucket_kernel(const int8_t* __restrict__ qc, const float* __restrict__ qs,
+              const int8_t* __restrict__ codes_t,
+              const float* __restrict__ scales,
+              const float* __restrict__ norms, float* __restrict__ od,
+              int32_t* __restrict__ oi, int b, int d, int n, int lsub, int cb,
+              int vec) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const mma::Tile tile(smem, b, d, n, lsub, cb, vec != 0);
+
+  float qsv[2][2];                       // [m16 tile][row half]
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = tile.q0 + tile.row(i, 2 * h);
+      qsv[i][h] = q < b ? qs[q] : 0.0f;
+    }
+  float best[2][4][4];
+  int am[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        best[i][j][e] = INFINITY;
+        am[i][j][e] = 0;
+      }
+
+  const uint32_t* const rows[mma::kMaxRows] = {
+      reinterpret_cast<const uint32_t*>(scales),
+      reinterpret_cast<const uint32_t*>(norms)};
+  tile.run(qc, codes_t, rows, 2, [&](int t, const mma::Acc& acc,
+                                     const uint32_t* rows_t) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = tile.col(j, e);
+        const float s = __uint_as_float(rows_t[c]);
+        const float nm = __uint_as_float(rows_t[mma::kBO + c]);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          min_update(f32_value<E>(qsv[i][e >> 1], s, nm, acc[i][j][e]), t,
+                     best[i][j][e], am[i][j][e]);
+      }
+  });
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int q = tile.q0 + tile.row(i, e);
+      if (q >= b) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int o = tile.o0 + tile.col(j, e);
+        if (o >= tile.ncol) continue;
+        const long long idx = static_cast<long long>(q) * tile.ncol + o;
+        od[idx] = best[i][j][e];
+        oi[idx] = isfinite(best[i][j][e])
+                      ? static_cast<int32_t>(tile.point(o, am[i][j][e]))
+                      : -1;
+      }
+    }
 }
 
 // (value, id) order of the top-T rounds: smaller value, then smaller id.
@@ -346,22 +396,17 @@ extern "C" int idt_bucket_scan(const void* qc, const void* qs,
                                int d, int n, int lsub, int cb, int is_dot,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int ncol = n / lsub;
-  const dim3 grid((ncol + kBL - 1) / kBL, (b + kBQ - 1) / kBQ);
-  const auto* qc8 = static_cast<const int8_t*>(qc);
-  const auto* c8 = static_cast<const int8_t*>(codes_t);
-  const auto* qsf = static_cast<const float*>(qs);
-  const auto* sf = static_cast<const float*>(scales);
-  const auto* nf = static_cast<const float*>(norms);
-  if (is_dot) {
-    bucket_kernel<kDot><<<grid, kThreads, 0, s>>>(
-        qc8, qsf, c8, sf, nf, nullptr, static_cast<float*>(od),
-        static_cast<int32_t*>(oi), b, d, n, lsub, cb);
-  } else {
-    bucket_kernel<kL2><<<grid, kThreads, 0, s>>>(
-        qc8, qsf, c8, sf, nf, nullptr, static_cast<float*>(od),
-        static_cast<int32_t*>(oi), b, d, n, lsub, cb);
-  }
+  auto kernel = is_dot ? bucket_kernel<kDot> : bucket_kernel<kL2>;
+  unsigned blocks;
+  int smem;
+  cudaError_t err = mma::prepare(kernel, b, d, n, lsub, &blocks, &smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vec = mma::vector_ok(cb / lsub, codes_t, scales, norms);
+  kernel<<<blocks, mma::kThreads, smem, s>>>(
+      static_cast<const int8_t*>(qc), static_cast<const float*>(qs),
+      static_cast<const int8_t*>(codes_t), static_cast<const float*>(scales),
+      static_cast<const float*>(norms), static_cast<float*>(od),
+      static_cast<int32_t*>(oi), b, d, n, lsub, cb, vec);
   return launch_status();
 }
 
@@ -372,9 +417,8 @@ extern "C" int idt_bucket_scan_int(const void* qc, const void* w,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int ncol = n / lsub;
   const dim3 grid((ncol + kBL - 1) / kBL, (b + kBQ - 1) / kBQ);
-  bucket_kernel<kInt><<<grid, kThreads, 0, s>>>(
-      static_cast<const int8_t*>(qc), nullptr,
-      static_cast<const int8_t*>(codes_t), nullptr, nullptr,
+  bucket_int_kernel<<<grid, kThreads, 0, s>>>(
+      static_cast<const int8_t*>(qc), static_cast<const int8_t*>(codes_t),
       static_cast<const int32_t*>(w), static_cast<int32_t*>(od),
       static_cast<int32_t*>(oi), b, d, n, lsub, cb);
   return launch_status();

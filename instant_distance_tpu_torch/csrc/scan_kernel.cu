@@ -1,4 +1,5 @@
-// Packed-key int8 scan for Hopper (sm_90a).
+// Packed-key int8 scan for Hopper (sm_90a): kernel K1, and its timing
+// probe K6.
 //
 // Replaces the TPU Pallas kernel
 // instant_distance_tpu/ops/scan_kernel.py:_bucket_scan_int_packed_kernel
@@ -18,17 +19,20 @@
 // All arithmetic is int32.  The wrapper's guards (lsub a power of two,
 // D * lsub <= 16384) keep |dot| * lsub < 2^28 and every key inside int32.
 //
-// What bounds it on an H100: at build-wave sizes (4096 queries against
-// up to 1M points of D = 128) the int8 multiply-adds, ~5e11 per wave; at
-// small query batches, writing the [B, N/lsub] key array and streaming
-// the codes once per 64-query block.
+// What bounds it on an H100: at build-wave and ScanIndex sizes (4096-8192
+// queries against ~1M points of D = 128) the int8 multiply-adds, ~1 ms of
+// the tensor cores' peak a call; the codes (~130 MB) and the [B, N/lsub]
+// keys it writes (~0.5 GB) are a fraction of that at HBM rate.
 //
-// What the design does about it: one block owns 64 queries x 64 output
-// columns and keeps their running minimum in registers across the lsub
-// slabs (the slab form of the TPU kernel), so the [B, N] dot tile never
-// reaches memory and each query writes N/lsub keys.  The dot itself is
-// the __dp4a tile of dp4a_tile.cuh, 4 x 4 registers a thread.
-// Tensor-core int8 (mma.sync / wgmma) and TMA staging are later work.
+// What the design does about it: the product runs on the int8 tensor
+// cores through the tile of mma_tile.cuh (mma.sync m16n8k32, the query
+// tile staged once per block, code tiles double-buffered with cp.async
+// and transposed in shared memory, query blocks fastest in the grid).
+// One block owns 128 queries x 64 output columns and keeps their running
+// minimum in registers beside the accumulators across the lsub slabs (the
+// slab form of the TPU kernel), so the [B, N] dot tile never reaches
+// memory and each query writes N/lsub keys; the slab's w2 row arrives
+// with its code tile.
 //
 // The same kernel, cut short, is the timing probe K6 (replaces
 // instant_distance_tpu/ops/scan_kernel.py:_probe_kernel, called through
@@ -50,93 +54,72 @@
 
 #include <cuda_runtime.h>
 
-#include "dp4a_tile.cuh"
+#include "mma_tile.cuh"
 
 namespace {
 
-using idt::DotTiles;
-using idt::kBL;
-using idt::kThreads;
-using idt::kTL;
-
-constexpr int kTQ = 4;                   // queries per thread: 64 per block
-constexpr int kBQ = 16 * kTQ;
+namespace mma = idt::mma;
 
 enum Probe { kFull = 0, kMin = 1, kMm = 2 };
 
 template <int kProbe>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(mma::kThreads)
 packed_scan_kernel(const int8_t* __restrict__ qc,
                    const int32_t* __restrict__ w2,
                    const int8_t* __restrict__ codes_t,
-                   int32_t* __restrict__ od,
-                   int b, int d, int n, int lsub, int cb) {
-  __shared__ DotTiles<kTQ> sm;
+                   int32_t* __restrict__ od, int b, int d, int n, int lsub,
+                   int cb, int vec) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const mma::Tile tile(smem, b, d, n, lsub, cb, vec != 0);
 
-  const int ct = cb / lsub;
+  int32_t best[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) best[i][j][e] = INT_MAX;
+
+  const uint32_t* const rows[mma::kMaxRows] = {
+      reinterpret_cast<const uint32_t*>(w2), nullptr};
+  tile.run(qc, codes_t, rows, kProbe == kFull ? 1 : 0,
+           [&](int t, const mma::Acc& acc, const uint32_t* rows_t) {
+#pragma unroll
+             for (int j = 0; j < 4; ++j)
+#pragma unroll
+               for (int e = 0; e < 4; ++e) {
+                 if (kProbe == kFull) {
+                   const int32_t wv = static_cast<int32_t>(rows_t[tile.col(j, e)]);
+#pragma unroll
+                   for (int i = 0; i < 2; ++i)
+                     best[i][j][e] = min(best[i][j][e], wv - acc[i][j][e] * lsub);
+                 } else if (kProbe == kMin) {
+#pragma unroll
+                   for (int i = 0; i < 2; ++i)
+                     best[i][j][e] = min(best[i][j][e], acc[i][j][e]);
+                 } else {
+#pragma unroll
+                   for (int i = 0; i < 2; ++i) {
+                     if (t == 0) best[i][j][e] = acc[i][j][e];
+                     else asm volatile("" ::"r"(acc[i][j][e]));
+                   }
+                 }
+               }
+           });
+
   const int ncol = n / lsub;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int q0 = blockIdx.y * kBQ;
-  const int o0 = blockIdx.x * kBL;
-
-  // code-tile loader: this thread's column of the tile, slab 0
-  const int lo = o0 + tid % kBL;
-  const bool l_ok = lo < ncol;
-  const long long l_base = l_ok ? idt::slab0_point(lo, ct, cb) : 0;
-
-  // epilogue: this thread's output columns, slab 0
-  long long e_base[kTL];
-  bool e_ok[kTL];
 #pragma unroll
-  for (int j = 0; j < kTL; ++j) {
-    const int o = o0 + tx + 16 * j;
-    e_ok[j] = o < ncol;
-    e_base[j] = e_ok[j] ? idt::slab0_point(o, ct, cb) : 0;
-  }
-
-  int32_t best[kTQ][kTL];
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-  for (int i = 0; i < kTQ; ++i)
+    for (int e = 0; e < 4; ++e) {
+      const int q = tile.q0 + tile.row(i, e);
+      if (q >= b) continue;
 #pragma unroll
-    for (int j = 0; j < kTL; ++j) best[i][j] = INT_MAX;
-
-  for (int t = 0; t < lsub; ++t) {
-    const long long slab = static_cast<long long>(t) * ct;
-    int32_t acc[kTQ][kTL];
-    idt::dot_tile<kTQ>(qc, codes_t, b, d, n, q0, l_ok, l_base + slab, sm,
-                       acc);
-#pragma unroll
-    for (int j = 0; j < kTL; ++j) {
-      if (kProbe == kMm) {
-#pragma unroll
-        for (int i = 0; i < kTQ; ++i) {
-          if (t == 0) best[i][j] = acc[i][j];
-          else asm volatile("" ::"r"(acc[i][j]));
-        }
-        continue;
+      for (int j = 0; j < 4; ++j) {
+        const int o = tile.o0 + tile.col(j, e);
+        if (o < ncol) od[static_cast<long long>(q) * ncol + o] = best[i][j][e];
       }
-      if (kProbe == kMin) {
-#pragma unroll
-        for (int i = 0; i < kTQ; ++i) best[i][j] = min(best[i][j], acc[i][j]);
-        continue;
-      }
-      if (!e_ok[j]) continue;
-      const int32_t wv = w2[e_base[j] + slab];
-#pragma unroll
-      for (int i = 0; i < kTQ; ++i) best[i][j] = min(best[i][j], wv - acc[i][j] * lsub);
     }
-  }
-#pragma unroll
-  for (int i = 0; i < kTQ; ++i) {
-    const int q = q0 + ty + 16 * i;
-    if (q >= b) continue;
-#pragma unroll
-    for (int j = 0; j < kTL; ++j) {
-      if (e_ok[j]) od[static_cast<long long>(q) * ncol + o0 + tx + 16 * j] = best[i][j];
-    }
-  }
 }
 
 // Second-level min over groups-wide strided column groups of od.
@@ -155,6 +138,23 @@ __global__ void group_min_kernel(const int32_t* __restrict__ od,
   og[idx] = v;
 }
 
+template <int kProbe>
+cudaError_t launch(const void* qc, const void* w2, const void* codes_t,
+                   void* od, int b, int d, int n, int lsub, int cb,
+                   cudaStream_t s) {
+  unsigned blocks;
+  int smem;
+  cudaError_t err = mma::prepare(packed_scan_kernel<kProbe>, b, d, n, lsub,
+                                 &blocks, &smem);
+  if (err != cudaSuccess) return err;
+  const int vec = mma::vector_ok(cb / lsub, codes_t, w2, nullptr);
+  packed_scan_kernel<kProbe><<<blocks, mma::kThreads, smem, s>>>(
+      static_cast<const int8_t*>(qc), static_cast<const int32_t*>(w2),
+      static_cast<const int8_t*>(codes_t), static_cast<int32_t*>(od), b, d,
+      n, lsub, cb, vec);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Launches on `stream`; returns cudaGetLastError() as an int (0 = launched).
@@ -164,14 +164,9 @@ extern "C" int idt_packed_scan(const void* qc, const void* w2,
                                int b, int d, int n, int lsub, int cb,
                                int groups, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int ncol = n / lsub;
-  const dim3 grid((ncol + kBL - 1) / kBL, (b + kBQ - 1) / kBQ);
-  packed_scan_kernel<kFull><<<grid, kThreads, 0, s>>>(
-      static_cast<const int8_t*>(qc), static_cast<const int32_t*>(w2),
-      static_cast<const int8_t*>(codes_t), static_cast<int32_t*>(od), b, d,
-      n, lsub, cb);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch<kFull>(qc, w2, codes_t, od, b, d, n, lsub, cb, s);
   if (err != cudaSuccess || groups <= 1) return static_cast<int>(err);
+  const int ncol = n / lsub;
   const long long total = static_cast<long long>(b) * (ncol / groups);
   const int threads = 256;
   const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
@@ -187,20 +182,16 @@ extern "C" int idt_probe_scan(const void* qc, const void* w2,
                               int n, int lsub, int cb, int probe,
                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((n / lsub + kBL - 1) / kBL, (b + kBQ - 1) / kBQ);
-  const auto* q = static_cast<const int8_t*>(qc);
-  const auto* w = static_cast<const int32_t*>(w2);
-  const auto* c = static_cast<const int8_t*>(codes_t);
-  auto* o = static_cast<int32_t*>(od);
+  cudaError_t err;
   if (probe == kFull)
-    packed_scan_kernel<kFull><<<grid, kThreads, 0, s>>>(q, w, c, o, b, d, n, lsub, cb);
+    err = launch<kFull>(qc, w2, codes_t, od, b, d, n, lsub, cb, s);
   else if (probe == kMin)
-    packed_scan_kernel<kMin><<<grid, kThreads, 0, s>>>(q, w, c, o, b, d, n, lsub, cb);
+    err = launch<kMin>(qc, w2, codes_t, od, b, d, n, lsub, cb, s);
   else if (probe == kMm)
-    packed_scan_kernel<kMm><<<grid, kThreads, 0, s>>>(q, w, c, o, b, d, n, lsub, cb);
+    err = launch<kMm>(qc, w2, codes_t, od, b, d, n, lsub, cb, s);
   else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
 }
 
 extern "C" const char* idt_error_string(int code) {

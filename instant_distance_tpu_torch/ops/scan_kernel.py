@@ -284,8 +284,6 @@ def fused_scan_bucket_int_packed(qc, w2, codes_t, *, lsub: int = 32,
     _check(qc, w2, codes_t, lsub, cb, groups)
     b, d = qc.shape
     n = codes_t.shape[1]
-    if b > 65535 * 64:
-        raise ValueError(f"batch {b} exceeds the kernel grid")
     dev = qc.device
     od = torch.empty((b, n // lsub), dtype=torch.int32, device=dev)
     og = (torch.empty((b, n // (lsub * groups)), dtype=torch.int32,
@@ -374,8 +372,6 @@ def fused_scan_bucket(qc, qs, codes_t, scales, norms, *, lsub: int = 16,
     _check_bucket(qc, qs, codes_t, scales, norms, lsub, cb)
     b, d = qc.shape
     n = codes_t.shape[1]
-    if b > 65535 * 64:
-        raise ValueError(f"batch {b} exceeds the kernel grid")
     dev = qc.device
     od = torch.empty((b, n // lsub), dtype=torch.float32, device=dev)
     oi = torch.empty((b, n // lsub), dtype=torch.int32, device=dev)
@@ -564,8 +560,6 @@ def fused_scan_probe(qc, w2, codes_t, *, lsub: int = 64, cb: int = 8192,
     _check_probe(qc, w2, codes_t, lsub, cb, inner, probe)
     b, d = qc.shape
     n = codes_t.shape[1]
-    if b > 65535 * 64:
-        raise ValueError(f"batch {b} exceeds the kernel grid")
     dev = qc.device
     od = torch.empty((b, n // lsub), dtype=torch.int32, device=dev)
     if b and n:

@@ -22,20 +22,42 @@ from test_torch_packed import check_card as check_packed_kernels
 
 pytestmark = pytest.mark.gpu
 
-#: K1: (B, D, N, lsub, cb, groups)
+#: K1: (B, D, N, lsub, cb, groups, variant).  The new tile's edges: a
+#: batch of 1 and batches one past the 128-query tile, D tails (D % 32),
+#: two chunks of d (D > 512), N/lsub not a multiple of the 64-column
+#: tile, cb/lsub % 16 != 0 and misaligned codes (the plain staging path).
+#: Variants: "extreme" puts every code at +-127 (D * lsub = 16384, the
+#: guard's edge of |dot| * lsub < 2^28); "misaligned" shifts codes_t's
+#: data off 16-byte alignment.
 PACKED_CASES = (
-    (1024, 128, 65536, 64, 8192, 0),     # the main path's shapes
-    (1024, 128, 65536, 64, 8192, 2),
-    (100, 20, 4096, 16, 1024, 4),        # ragged batch, D % 32 != 0
-    (7, 3, 512, 8, 64, 0),
+    (1024, 128, 65536, 64, 8192, 0, ""),     # the main path's shapes
+    (1024, 128, 65536, 64, 8192, 2, ""),
+    (100, 20, 4096, 16, 1024, 4, ""),        # ragged batch, D % 32 != 0
+    (7, 3, 512, 8, 64, 0, ""),
+    (1, 128, 16384, 64, 8192, 0, ""),
+    (129, 100, 2304, 16, 768, 0, ""),        # N/lsub = 144
+    (4097, 16, 8192, 16, 1024, 0, ""),
+    (300, 256, 65536, 64, 8192, 0, "extreme"),
+    (130, 300, 8192, 32, 4096, 0, ""),
+    (64, 1024, 16384, 16, 4096, 0, ""),      # two chunks of d
+    (40, 128, 8192, 32, 2048, 0, "misaligned"),
 )
-#: K2 / K3 / K5: (B, D, N, lsub, cb); each runs K2 and K5 both ways of
-#: is_dot.  300 is the fastText width of the 300-d path.
+#: K2 / K3 / K5: (B, D, N, lsub, cb, variant); each runs K2 and K5 both
+#: ways of is_dot.  300 is the fastText width of the 300-d path.
+#: Variants: "ties" adds NaN norms and repeats slab 0 of every block in
+#: slabs 1 and 3 (codes, scales and norms), so the argmin must keep the
+#: first slab; "misaligned" as for K1.
 BUCKET_CASES = (
-    (1024, 300, 65536, 32, 4096),        # the build's and bucket's shapes
-    (1024, 300, 65536, 64, 8192),        # ScanIndex bucket_int at 300-d
-    (100, 20, 8192, 16, 4096),           # ragged batch, D % 32 != 0
-    (7, 3, 512, 8, 64),
+    (1024, 300, 65536, 32, 4096, ""),        # the build's and bucket's shapes
+    (1024, 300, 65536, 64, 8192, ""),        # ScanIndex bucket_int at 300-d
+    (100, 20, 8192, 16, 4096, ""),           # ragged batch, D % 32 != 0
+    (7, 3, 512, 8, 64, ""),
+    (1, 300, 8192, 32, 4096, ""),
+    (129, 16, 2304, 16, 768, ""),            # N/lsub = 144
+    (4097, 100, 4096, 32, 4096, ""),
+    (256, 256, 16384, 32, 4096, "ties"),
+    (64, 600, 8192, 16, 4096, ""),           # two chunks of d
+    (40, 128, 8192, 32, 2048, "misaligned"),
 )
 TOPT = 8
 
@@ -47,22 +69,38 @@ def cuda():
     return torch.device("cuda")
 
 
-def _packed_operands(b, d, n, lsub, cb, seed, device):
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose data is one element off the
+    allocation's alignment."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _packed_operands(b, d, n, lsub, cb, seed, device, variant=""):
     g = torch.Generator().manual_seed(seed)
     qc = torch.randint(-127, 128, (b, d), generator=g, dtype=torch.int8)
     codes = torch.randint(-127, 128, (d, n), generator=g, dtype=torch.int8)
+    if variant == "extreme":
+        qc = torch.where(qc >= 0, 127, -127).to(torch.int8)
+        codes = torch.where(codes >= 0, 127, -127).to(torch.int8)
     norms = torch.rand((1, n), generator=g) * 4
     norms[0, -3 * n // 64:] = torch.inf
     eligible = torch.rand((1, n), generator=g) < 0.9
     w2 = tsk.pack_w2(norms, torch.tensor(2 * 0.011 * 0.019), eligible,
                      lsub=lsub, cb=cb, d=d)
-    return qc.to(device), w2.to(device), codes.to(device)
+    codes = codes.to(device)
+    if variant == "misaligned":
+        codes = _misaligned(codes)
+    return qc.to(device), w2.to(device), codes
 
 
-def _bucket_operands(b, d, n, seed, device):
+def _bucket_operands(b, d, n, seed, device, lsub=1, cb=None, variant=""):
     """Random K2/K3/K5 operands: ineligible (+inf, and the int kernel's
     INT32_MAX // 2) points, a padded tail, rank weights reaching the
-    int32 range so that ``w - dot`` wraps."""
+    int32 range so that ``w - dot`` wraps; ``variant`` as in
+    BUCKET_CASES."""
     g = torch.Generator().manual_seed(seed)
     qc = torch.randint(-127, 128, (b, d), generator=g, dtype=torch.int8)
     codes = torch.randint(-127, 128, (d, n), generator=g, dtype=torch.int8)
@@ -75,7 +113,16 @@ def _bucket_operands(b, d, n, seed, device):
     w = torch.randint(-2**20, 2**31 - 1, (1, n), generator=g,
                       dtype=torch.int32)
     w[out] = (2**31 - 1) // 2
-    return [t.to(device) for t in (qc, qs, codes, scales, norms, w)]
+    if variant == "ties":
+        norms[torch.rand((1, n), generator=g) < 0.02] = torch.nan
+        for t in (codes, scales, norms, w):
+            v = t.view(t.shape[0], n // cb, lsub, cb // lsub)
+            v[:, :, 1] = v[:, :, 0]
+            v[:, :, 3] = v[:, :, 0]
+    ops = [t.to(device) for t in (qc, qs, codes, scales, norms, w)]
+    if variant == "misaligned":
+        ops[2] = _misaligned(ops[2])
+    return ops
 
 
 def _same(got, want, what):
@@ -93,9 +140,9 @@ def _launched(name, fn):
 
 
 def _check_packed(cuda):
-    for b, d, n, lsub, cb, groups in PACKED_CASES:
+    for b, d, n, lsub, cb, groups, variant in PACKED_CASES:
         qc, w2, codes = _packed_operands(b, d, n, lsub, cb, seed=n + d,
-                                         device=cuda)
+                                         device=cuda, variant=variant)
         got = _launched("fused_scan_bucket_int_packed",
                         lambda: tsk.fused_scan_bucket_int_packed(
                             qc, w2, codes, lsub=lsub, cb=cb, groups=groups))
@@ -104,16 +151,16 @@ def _check_packed(cuda):
         if groups <= 1:
             got, want = (got,), (want,)
         _same(got, want, f"K1 B={b} D={d} N={n} lsub={lsub} cb={cb} "
-                         f"groups={groups}")
+                         f"groups={groups} {variant}")
 
 
 def _check_bucket(cuda):
-    for b, d, n, lsub, cb in BUCKET_CASES:
-        qc, qs, codes, scales, norms, w = _bucket_operands(b, d, n, n + d,
-                                                           cuda)
-        case = f"B={b} D={d} N={n} lsub={lsub} cb={cb}"
+    for b, d, n, lsub, cb, variant in BUCKET_CASES:
+        qc, qs, codes, scales, norms, w = _bucket_operands(
+            b, d, n, n + d, cuda, lsub=lsub, cb=cb, variant=variant)
+        case = f"B={b} D={d} N={n} lsub={lsub} cb={cb} {variant}"
         for is_dot in (False, True):
-            nm = torch.where(torch.isfinite(norms), 0.0, torch.inf) \
+            nm = torch.where(torch.isfinite(norms), 0.0, norms) \
                 if is_dot else norms
             args = (qc, qs, codes, scales, nm)
             got = _launched("fused_scan_bucket", lambda: tsk.fused_scan_bucket(
