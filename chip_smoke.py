@@ -9,8 +9,8 @@ against its plain torch version:
   2. build    — compiles csrc/*.cu (one nvcc per source, in parallel),
                 prints each kernel's registers and spills (ptxas) and its
                 tensor-core and __dp4a instruction counts (cuobjdump
-                -sass), and fails unless K1/K6 and K2 run on the int8
-                tensor cores with no __dp4a;
+                -sass), and fails unless every scan kernel (K1/K6, K2,
+                K3, K5) runs on the int8 tensor cores with no __dp4a;
   3. kernels  — each kernel (K1 packed keys, K2 bucket, K3 bucket_int,
                 K5 topt, K4 walk, K6 probe in its three modes) vs its
                 plain version on random inputs from a seeded generator on
@@ -21,7 +21,9 @@ against its plain torch version:
                 TOP/s and its share of the bound; torch._int_mm on K1's
                 product as the yardstick of K6's "mm" mode; K6 also at
                 K2's 300-d build wave shape, which splits K2's time into
-                the tile's product and K2's f32 epilogue;
+                the tile's product and K2's f32 epilogue; K2 also on K5's
+                topt-batch operands, which splits K5's time into K2's
+                group minima and the top-T merge;
   4. scan     — ScanIndex(fused="bucket_pack") over SIFT1M-shaped data
                 (1M x 128), an 8192-query batch: qps, recall@10 vs
                 BruteForce (K1); then the attribution path: K6's three
@@ -86,11 +88,18 @@ PACKED_KW = dict(k=K, ef=50, entry_seeds=8192, expand=2)
 #: K4's random-graph cases: nodes, neighbours per row, batch, ef, seeds.
 WALK_N, WALK_K, WALK_B, WALK_EF, WALK_S = 65536, 64, 1024, 50, 4096
 
-#: Kernels whose product runs on the int8 tensor cores (K1 with K6, and
-#: K2): the build phase fails if their machine code holds no IMMA/IGMMA
-#: or any __dp4a (IDP.4A).  Mangled, a template kernel's name is its
-#: length, the name and "I" (its template arguments follow).
-TENSOR_CORE_KERNELS = ("18packed_scan_kernelI", "13bucket_kernelI")
+#: Kernels whose product runs on the int8 tensor cores (K1 with K6; K2
+#: and K3, one template; K5): the build phase fails if their machine code
+#: holds no IMMA/IGMMA or any __dp4a (IDP.4A).  Mangled, a template
+#: kernel's name is its length, the name and "I" (its template arguments
+#: follow).
+TENSOR_CORE_KERNELS = ("18packed_scan_kernelI", "13bucket_kernelI",
+                       "11topt_kernelI")
+#: K3's and K5's times at their record cases on the __dp4a tile that the
+#: tensor-core tile replaced (this script on an NVIDIA H100 80GB HBM3 at
+#: 700 W), printed beside the new times.
+DP4A_MS = {("fused_scan_bucket_int", "scan batch"): 283.73,
+           ("fused_scan_topt", "topt batch"): 456.10}
 
 SRC = "instant_distance_tpu_torch/csrc/"
 JAX_KERNELS = "instant_distance_tpu/ops/scan_kernel.py"
@@ -227,6 +236,10 @@ KERNEL_CASES = (
      _padded(N_POINTS, 8192 * 2), 64, 8192, {}),
     ("slice", "fused_scan_bucket_int", 1000, DIM300, 65536, 64, 8192, {}),
     ("topt batch", "fused_scan_topt", N_QUERIES, DIM300,
+     _padded(N_POINTS, SCAN_CB), TOPT_LSUB, SCAN_CB, {"is_dot": True}),
+    # K2 on K5's very operands (same shape and seed): K5's group minima
+    # without the top-T merge
+    ("topt batch", "fused_scan_bucket", N_QUERIES, DIM300,
      _padded(N_POINTS, SCAN_CB), TOPT_LSUB, SCAN_CB, {"is_dot": True}),
     ("slice", "fused_scan_topt", 1000, DIM300, 65536, TOPT_LSUB, 4096,
      {"is_dot": False}),
@@ -382,13 +395,17 @@ def phase_kernels(torch, tsk, dev):
                       if opts.get("probe") == "mm" and kernel not in records
                       else None)
         times[(kernel, label)] = ms
+        dp4a_ms = DP4A_MS.get((kernel, label))
         _phase("kernels", f"{kernel} {label} B={b} D={d} N={n} "
                f"{ {**kw, **opts} }: bit-exact; kernel {ms:.4f} ms "
                f"({2 * b * n * d / ms / 1e9:.1f} TOP/s, "
                f"{bound_ms / ms:.2%} of the bound), plain {plain_ms:.4f} ms, "
                f"bound {bound_ms:.4f} ms ({bound_by})"
                + ("" if library_ms is None else
-                  f", torch._int_mm {library_ms:.4f} ms"))
+                  f", torch._int_mm {library_ms:.4f} ms")
+               + ("" if dp4a_ms is None else
+                  f"; on the __dp4a tile {dp4a_ms:.2f} ms "
+                  f"({dp4a_ms / ms:.1f}x)"))
         records.setdefault(kernel, dict(
             case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
@@ -406,6 +423,11 @@ def phase_kernels(torch, tsk, dev):
     _phase("kernels", f"K2 attribution at the 300-d build wave (K6 at its "
            f"shape): product {mm:.4f} ms, + min chain {mn - mm:.4f} ms, + "
            f"K2's f32 epilogue and argmin {k2 - mn:.4f} ms = K2 {k2:.4f} ms")
+    k2, k5 = (times[k, "topt batch"]
+              for k in ("fused_scan_bucket", "fused_scan_topt"))
+    _phase("kernels", f"K5 attribution at the topt batch (K2 on its "
+           f"operands): group minima {k2:.4f} ms, + top-T merge "
+           f"{k5 - k2:.4f} ms = K5 {k5:.4f} ms")
     return records
 
 

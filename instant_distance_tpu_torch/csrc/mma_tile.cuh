@@ -1,11 +1,12 @@
-// The int8 tensor-core scan tile shared by K1 (csrc/scan_kernel.cu, with
-// its probe K6) and K2 (csrc/bucket_kernel.cu), for Hopper (sm_90a).
+// The int8 tensor-core scan tile shared by every scan kernel, for Hopper
+// (sm_90a): K1 (csrc/scan_kernel.cu, with its probe K6), K2, K3 and K5
+// (csrc/bucket_kernel.cu).
 //
-// Replaces, for those kernels, the __dp4a tile of dp4a_tile.cuh (which K3
-// and K5 keep).  The TPU kernels it serves
-// (instant_distance_tpu/ops/scan_kernel.py: _bucket_scan_int_packed_kernel,
-// _probe_kernel, _bucket_scan_kernel) hand the whole [QB, D] x [D, CB]
-// product to the matrix unit; here it goes to the int8 tensor cores.
+// The TPU kernels it serves (instant_distance_tpu/ops/scan_kernel.py:
+// _bucket_scan_int_packed_kernel, _probe_kernel, _bucket_scan_kernel,
+// _bucket_scan_int_kernel, _fused_scan_kernel) hand the whole [QB, D] x
+// [D, CB] product to the matrix unit; here it goes to the int8 tensor
+// cores.
 //
 // What bounds the product on an H100: at the paths' shapes the int8
 // multiply-adds (2 * B * N * D operations, ~1 ms of the 1,979 TOP/s peak)
@@ -20,9 +21,10 @@
 //     int32 accumulators each.  A thread's accumulators stand for the same
 //     (query, column) pairs in every slab, so the caller's epilogue keeps
 //     its running minimum beside them in registers.
-//   * The query tile [kBQ, D] is staged once per block (D <= kKC) and
-//     stays in shared memory across all lsub slabs.  Wider D runs in
-//     chunks of kKC d, the query chunk restaged each step.
+//   * The query tile [kBQ, D] is staged once per run() (D <= kKC: once
+//     per block, once per column tile for K5) and stays in shared memory
+//     across all lsub slabs.  Wider D runs in chunks of kKC d, the query
+//     chunk restaged each step.
 //   * The codes stay codes_t [D, N] (d-major).  A step's code tiles (64
 //     points x one chunk of d, for one slab, or for several narrow ones
 //     so that they share a pair of barriers) are copied with 16-byte cp.async
@@ -39,7 +41,10 @@
 //     tile run together and its codes come from HBM once, then from L2.
 //
 // Point p(o, t) of output column o at slab t: (o / ct) * cb + t * ct +
-// o % ct, ct = cb / lsub.  Query rows past B, columns past N / lsub and d
+// o % ct, ct = cb / lsub.  A block's tile is queries q0 .. q0 + kBQ - 1 x
+// columns o0 .. o0 + kBO - 1: K1, K2 and K3 take it from blockIdx.x (one
+// tile a block), K5 walks the tiles of one cb block itself.  Query rows
+// past B, columns past o_end (N / lsub, or the end of K5's cb block) and d
 // past D load as zero; the caller skips their outputs.
 
 #pragma once
@@ -157,26 +162,34 @@ struct Tile {
   const int b, d, n, lsub, cb, ct, ncol;
   const bool vec;
   const Plan plan;
-  const int q0, o0;
+  const int q0, o0, o_end;
   uint8_t* const smem;
   // this thread's staging pieces at slab 0: code columns o0 + 16 (tid % 4)
   // .. +16, and (tid < kMaxRows * 16) rows columns o0 + 4 (tid % 16) .. +4
   bool c_ok, r_ok;
   long long c_base, r_base;
 
+  // The tile of queries from q0 x columns from o0; nothing at or past
+  // column o_end is staged.
   __device__ Tile(uint8_t* smem_, int b_, int d_, int n_, int lsub_, int cb_,
-                  bool vec_)
+                  bool vec_, int q0_, int o0_, int o_end_)
       : b(b_), d(d_), n(n_), lsub(lsub_), cb(cb_), ct(cb_ / lsub_),
-        ncol(n_ / lsub_), vec(vec_), plan(d_, lsub_),
-        q0((blockIdx.x % ((b_ + kBQ - 1) / kBQ)) * kBQ),
-        o0((blockIdx.x / ((b_ + kBQ - 1) / kBQ)) * kBO), smem(smem_) {
+        ncol(n_ / lsub_), vec(vec_), plan(d_, lsub_), q0(q0_), o0(o0_),
+        o_end(o_end_), smem(smem_) {
     const int oc = o0 + 16 * (threadIdx.x & 3);
     const int orow = o0 + 4 * (threadIdx.x & 15);
-    c_ok = oc < ncol;
-    r_ok = orow < ncol;
+    c_ok = oc < o_end;
+    r_ok = orow < o_end;
     c_base = c_ok ? point(oc, 0) : 0;
     r_base = r_ok ? point(orow, 0) : 0;
   }
+
+  // This block's tile of a launch of blocks(b, ncol) blocks.
+  __device__ Tile(uint8_t* smem_, int b_, int d_, int n_, int lsub_, int cb_,
+                  bool vec_)
+      : Tile(smem_, b_, d_, n_, lsub_, cb_, vec_,
+             (blockIdx.x % ((b_ + kBQ - 1) / kBQ)) * kBQ,
+             (blockIdx.x / ((b_ + kBQ - 1) / kBQ)) * kBO, n_ / lsub_) {}
 
   // Blocks of a launch: query blocks fastest.
   static long long blocks(int b, int ncol) {
@@ -253,7 +266,7 @@ struct Tile {
             const int8_t* src = codes_t + static_cast<long long>(dd) * n;
 #pragma unroll
             for (int i = 0; i < 16; ++i)
-              if (o + i < ncol)
+              if (o + i < o_end)
                 w[i >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(src[point(o + i, t)]))
                              << (8 * (i & 3));
           }
@@ -276,7 +289,7 @@ struct Tile {
           const int o = o0 + c4;
           uint32_t w[4];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) w[i] = o + i < ncol ? row[point(o + i, t)] : 0u;
+          for (int i = 0; i < 4; ++i) w[i] = o + i < o_end ? row[point(o + i, t)] : 0u;
           *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
         }
       }

@@ -415,8 +415,6 @@ def fused_scan_bucket_int(qc, w, codes_t, *, lsub: int = 32,
     _check_int(qc, w, codes_t, lsub, cb)
     b, d = qc.shape
     n = codes_t.shape[1]
-    if b > 65535 * 64:
-        raise ValueError(f"batch {b} exceeds the kernel grid")
     dev = qc.device
     od = torch.empty((b, n // lsub), dtype=torch.int32, device=dev)
     oi = torch.empty((b, n // lsub), dtype=torch.int32, device=dev)
@@ -468,8 +466,10 @@ def fused_scan_topt(qc, qs, codes_t, scales, norms, *, lsub: int = 16,
     stride-group minima, each taking the smallest distance, the smallest
     id among the groups at that distance, and removing that group; ids
     are -1 where the distance is not finite (a block with fewer eligible
-    points).  Requires lsub | cb | N and, on the card, cb/lsub small
-    enough for one block's shared memory (895 at 32 queries a block).
+    points).  Requires lsub | cb | N and, on the card, ``topt`` small
+    enough for one block's shared memory: a block keeps 128 queries' lists
+    (1 KiB per unit of ``topt``) beside the tile's stages: topt <= 108 at
+    D = 300 and <= 46 at D = 600.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     or raise.
@@ -484,12 +484,10 @@ def fused_scan_topt(qc, qs, codes_t, scales, norms, *, lsub: int = 16,
 
     b, d = qc.shape
     n = codes_t.shape[1]
-    max_ct = library().idt_topt_max_ct()
-    if cb // lsub > max_ct:
-        raise ValueError(f"cb/lsub = {cb // lsub} exceeds the kernel's "
-                         f"shared memory ({max_ct})")
-    if b > 65535 * 32:
-        raise ValueError(f"batch {b} exceeds the kernel grid")
+    max_t = library().idt_topt_max_topt(d, lsub)
+    if topt > max_t:
+        raise ValueError(f"topt = {topt} exceeds the kernel's shared memory "
+                         f"(at most {max_t} at D={d}, lsub={lsub})")
     dev = qc.device
     nt = (n // cb) * topt
     od = torch.empty((b, nt), dtype=torch.float32, device=dev)

@@ -43,10 +43,16 @@ PACKED_CASES = (
     (40, 128, 8192, 32, 2048, 0, "misaligned"),
 )
 #: K2 / K3 / K5: (B, D, N, lsub, cb, variant); each runs K2 and K5 both
-#: ways of is_dot.  300 is the fastText width of the 300-d path.
-#: Variants: "ties" adds NaN norms and repeats slab 0 of every block in
-#: slabs 1 and 3 (codes, scales and norms), so the argmin must keep the
-#: first slab; "misaligned" as for K1.
+#: ways of is_dot.  300 is the fastText width of the 300-d path.  K5's
+#: edges: cb/lsub = 8, 48 and 4 (fewer groups than TOPT), 256 (four of
+#: its 64-column tiles), two chunks of d.  Variants: "ties" adds NaN
+#: norms to the first cb block (the other blocks keep K5's results
+#: finite), repeats slab 0 of every block in slabs 1 and 3 (codes,
+#: scales, norms and w), so the argmin must keep the first slab, and
+#: makes every odd group a copy of the even one before it, so K5 must
+#: order equal minima by id; "edges" makes the first cb block wholly
+#: ineligible and puts -inf norms in the second and NaN norms in the
+#: third; "misaligned" as for K1.
 BUCKET_CASES = (
     (1024, 300, 65536, 32, 4096, ""),        # the build's and bucket's shapes
     (1024, 300, 65536, 64, 8192, ""),        # ScanIndex bucket_int at 300-d
@@ -58,6 +64,8 @@ BUCKET_CASES = (
     (256, 256, 16384, 32, 4096, "ties"),
     (64, 600, 8192, 16, 4096, ""),           # two chunks of d
     (40, 128, 8192, 32, 2048, "misaligned"),
+    (33, 40, 1024, 16, 64, ""),              # cb/lsub = 4 < TOPT
+    (200, 300, 12288, 16, 4096, "edges"),    # the topt path's lsub and cb
 )
 TOPT = 8
 
@@ -113,12 +121,19 @@ def _bucket_operands(b, d, n, seed, device, lsub=1, cb=None, variant=""):
     w = torch.randint(-2**20, 2**31 - 1, (1, n), generator=g,
                       dtype=torch.int32)
     w[out] = (2**31 - 1) // 2
+    if variant == "edges":
+        norms[0, :cb] = torch.inf
+        w[0, :cb] = (2**31 - 1) // 2
+        norms[0, cb:2 * cb][torch.rand(cb, generator=g) < 0.05] = -torch.inf
+        norms[0, 2 * cb:3 * cb][torch.rand(cb, generator=g) < 0.05] = \
+            torch.nan
     if variant == "ties":
-        norms[torch.rand((1, n), generator=g) < 0.02] = torch.nan
+        norms[0, :cb][torch.rand(cb, generator=g) < 0.02] = torch.nan
         for t in (codes, scales, norms, w):
             v = t.view(t.shape[0], n // cb, lsub, cb // lsub)
             v[:, :, 1] = v[:, :, 0]
             v[:, :, 3] = v[:, :, 0]
+            v[..., 1::2] = v[..., 0::2]
     ops = [t.to(device) for t in (qc, qs, codes, scales, norms, w)]
     if variant == "misaligned":
         ops[2] = _misaligned(ops[2])
@@ -200,9 +215,9 @@ def _check_malformed(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         tsk.fused_scan_topt(qc, qs, codes.T.contiguous().T, scales, norms,
                             lsub=8, cb=64)
-    qc, qs, codes, scales, norms, w = _bucket_operands(8, 16, 1024, 0, cuda)
     with pytest.raises(ValueError, match="shared memory"):
-        tsk.fused_scan_topt(qc, qs, codes, scales, norms, lsub=1, cb=1024)
+        tsk.fused_scan_topt(qc, qs, codes, scales, norms, lsub=8, topt=1000,
+                            cb=64)
 
 
 def test_kernel_matches_plain(cuda):

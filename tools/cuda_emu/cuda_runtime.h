@@ -3,7 +3,7 @@
 // kernels (see run.py).  One block runs at a time, one std::thread per
 // CUDA thread; __syncthreads is a block barrier, and the warp-collective
 // ldmatrix / mma.sync that run.py substitutes for the inline PTX meet at a
-// warp barrier.  __shfl_xor_sync is not emulated (K5 aborts).
+// warp barrier.
 #pragma once
 #include <barrier>
 #include <climits>
@@ -57,23 +57,15 @@ inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
   for (int i = 0; i < 4; ++i) r |= uint32_t(in[(s >> (4 * i)) & 7]) << (8 * i);
   return r;
 }
-inline int __dp4a(int a, int b, int c) {
-  for (int i = 0; i < 4; ++i) c += int8_t(a >> (8 * i)) * int8_t(b >> (8 * i));
-  return c;
-}
 // volatile: one rounding per operation, never contracted
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
 inline float __int2float_rn(int a) { return float(a); }
+inline int __ffsll(long long x) { return __builtin_ffsll(x); }
 inline float __uint_as_float(uint32_t u) {
   float f;
   memcpy(&f, &u, 4);
   return f;
-}
-template <class T> T __shfl_xor_sync(unsigned, T v, int) {
-  fprintf(stderr, "__shfl_xor_sync is not emulated\n");
-  abort();
-  return v;
 }
 
 // The block being run: its shared memory, barriers and the warps'

@@ -1,4 +1,5 @@
-"""Run the tensor-core scan kernels (K1 and its probe K6, K2) on the CPU.
+"""Run the tensor-core scan kernels (K1 and its probe K6, K2, K3, K5) on
+the CPU.
 
 A check of the tile's index math for a machine without ``nvcc``: copies
 ``instant_distance_tpu_torch/csrc`` into ``build/cuda_emu/``, replaces the
@@ -11,7 +12,7 @@ holds every result bit for bit against the plain torch versions of
 says nothing about what ``nvcc`` accepts or how fast the card runs; the
 kernels' tests on the card are ``tests/test_torch_gpu.py``.
 
-    python tools/cuda_emu/run.py [k1|k2]
+    python tools/cuda_emu/run.py [k1|k2|k3|k5 ...]
 
 Each block runs 256 OS threads, so keep the shapes small (a few blocks).
 """
@@ -104,8 +105,6 @@ def build() -> dict:
         if name.endswith(".cu"):
             s = s.replace("extern __shared__ __align__(16) uint8_t smem[];",
                           "uint8_t* smem = g_emu->smem;")
-            s = s.replace("extern __shared__ float minima[];",
-                          "float* minima = (float*)g_emu->smem;")
             s = re.sub(r"(\S+?)<<<([^,]+),\s*([^,]+),\s*([^,]+),\s*([^>]+)>>>\(",
                        r"emu_launch_f(\2, \3, \4, \1, ", s)
         with open(os.path.join(OUT, name), "w") as f:
@@ -121,7 +120,11 @@ def build() -> dict:
     P, I = ctypes.c_void_p, ctypes.c_int
     libs["scan_kernel"].idt_packed_scan.argtypes = [P] * 5 + [I] * 6 + [P]
     libs["scan_kernel"].idt_probe_scan.argtypes = [P] * 4 + [I] * 6 + [P]
-    libs["bucket_kernel"].idt_bucket_scan.argtypes = [P] * 7 + [I] * 6 + [P]
+    bk = libs["bucket_kernel"]
+    bk.idt_bucket_scan.argtypes = [P] * 7 + [I] * 6 + [P]
+    bk.idt_bucket_scan_int.argtypes = [P] * 5 + [I] * 5 + [P]
+    bk.idt_topt_scan.argtypes = [P] * 7 + [I] * 7 + [P]
+    bk.idt_topt_max_topt.argtypes = [I, I]
     return libs
 
 
@@ -166,6 +169,67 @@ K2_CASES = (
 )
 
 
+#: K3: (B, D, N, lsub, cb, variant).  "ties" repeats slab 0 of every
+#: block in slabs 1 and 3 (codes and w), and makes every odd group a copy
+#: of the even one before it (equal minima, K5's id order among them);
+#: for K2/K5 it also puts NaN and -inf norms in the first cb block.
+#: "edges" makes one whole cb block ineligible.  w reaches the int32
+#: range, so w - dot wraps.
+K3_CASES = (
+    (7, 3, 512, 8, 64, ""),                  # cb / lsub = 8: plain staging
+    (129, 300, 8192, 64, 8192, ""),          # the 300-d path's lsub and cb
+    (100, 20, 2304, 16, 768, "edges"),       # N / lsub = 144: ragged tile
+    (70, 100, 4096, 32, 4096, "ties"),
+    (33, 600, 2048, 16, 1024, ""),           # two chunks of d
+    (20, 64, 2048, 16, 2048, "misaligned"),
+)
+#: K5: (B, D, N, lsub, cb, topt, variant); each runs both ways of is_dot.
+#: "edges": one whole cb block ineligible (+inf norms), -inf norms in
+#: another, NaN norms in a third; "ties" as for K2.
+K5_CASES = (
+    (7, 3, 512, 8, 64, 8, ""),               # cb / lsub = 8 = T
+    (129, 40, 3072, 16, 768, 8, "edges"),    # cb / lsub = 48: one ragged tile
+    (33, 40, 1024, 16, 64, 8, ""),           # cb / lsub = 4 < T
+    (20, 16, 8192, 16, 4096, 5, "ties"),     # cb / lsub = 256: four tiles
+    (9, 600, 1024, 8, 1024, 3, "misaligned"),  # two chunks of d, 128 cols
+)
+
+
+def _bucket_operands(b, d, n, lsub, cb, variant):
+    """Random K2/K3/K5 operands (qc, qs, codes, scales, norms, w):
+    ineligible points (+inf norms, INT32_MAX // 2 ranks), a padded tail;
+    ``variant`` as in K2_CASES, K3_CASES and K5_CASES."""
+    g = torch.Generator().manual_seed(n + d + b)
+    qc = torch.randint(-127, 128, (b, d), generator=g, dtype=torch.int8)
+    codes = torch.randint(-127, 128, (d, n), generator=g, dtype=torch.int8)
+    qs = torch.rand((b, 1), generator=g) * 0.02 + 1e-3
+    scales = torch.rand((1, n), generator=g) * 0.02 + 1e-3
+    norms = torch.rand((1, n), generator=g) * 4
+    out = torch.rand((1, n), generator=g) < 0.1
+    out[0, -n // 16:] = True
+    w = torch.randint(-2**20, 2**31 - 1, (1, n), generator=g,
+                      dtype=torch.int32)
+    if variant == "edges":
+        out[0, :cb] = True
+        norms[0, cb:2 * cb][torch.rand(cb, generator=g) < 0.05] = -torch.inf
+        norms[0, 2 * cb:3 * cb][torch.rand(cb, generator=g) < 0.05] = \
+            torch.nan
+    norms[out] = torch.inf
+    w[out] = (2**31 - 1) // 2
+    if variant == "ties":
+        first = norms[0, :cb]
+        first[torch.rand(cb, generator=g) < 0.02] = torch.nan
+        first[torch.rand(cb, generator=g) < 0.02] = -torch.inf
+        for t in (codes, scales, norms, w):
+            v = t.view(t.shape[0], n // cb, lsub, cb // lsub)
+            v[:, :, 1] = v[:, :, 0]
+            v[:, :, 3] = v[:, :, 0]
+            v[..., 1::2] = v[..., 0::2]
+    if variant == "misaligned":
+        codes = _misaligned(codes)
+    return qc, qs, codes, scales, norms, w
+
+
 def check_k1(lib) -> None:
     for b, d, n, lsub, cb, groups, variant in K1_CASES:
         g = torch.Generator().manual_seed(n + d + b)
@@ -207,25 +271,8 @@ def check_k1(lib) -> None:
 
 def check_k2(lib) -> None:
     for b, d, n, lsub, cb, variant in K2_CASES:
-        g = torch.Generator().manual_seed(n + d + b)
-        qc = torch.randint(-127, 128, (b, d), generator=g, dtype=torch.int8)
-        codes = torch.randint(-127, 128, (d, n), generator=g,
-                              dtype=torch.int8)
-        qs = torch.rand((b, 1), generator=g) * 0.02 + 1e-3
-        scales = torch.rand((1, n), generator=g) * 0.02 + 1e-3
-        norms = torch.rand((1, n), generator=g) * 4
-        out = torch.rand((1, n), generator=g) < 0.1
-        out[0, -n // 16:] = True
-        norms[out] = torch.inf
-        if variant == "ties":
-            norms[torch.rand((1, n), generator=g) < 0.02] = torch.nan
-            norms[torch.rand((1, n), generator=g) < 0.02] = -torch.inf
-            for t in (codes, scales, norms):
-                v = t.view(t.shape[0], n // cb, lsub, cb // lsub)
-                v[:, :, 1] = v[:, :, 0]
-                v[:, :, 3] = v[:, :, 0]
-        if variant == "misaligned":
-            codes = _misaligned(codes)
+        qc, qs, codes, scales, norms, _ = _bucket_operands(b, d, n, lsub, cb,
+                                                           variant)
         for is_dot in (False, True):
             nm = torch.where(torch.isfinite(norms), 0.0, norms) \
                 if is_dot else norms
@@ -242,13 +289,53 @@ def check_k2(lib) -> None:
                 f"{variant} ({time.perf_counter() - t0:.1f} s)")
 
 
+def check_k3(lib) -> None:
+    for b, d, n, lsub, cb, variant in K3_CASES:
+        qc, _, codes, _, _, w = _bucket_operands(b, d, n, lsub, cb, variant)
+        t0 = time.perf_counter()
+        od = torch.zeros((b, n // lsub), dtype=torch.int32)
+        oi = torch.zeros((b, n // lsub), dtype=torch.int32)
+        assert lib.idt_bucket_scan_int(_ptr(qc), _ptr(w), _ptr(codes),
+                                       _ptr(od), _ptr(oi), b, d, n, lsub, cb,
+                                       None) == 0
+        _same((od, oi), tsk.fused_scan_bucket_int_plain(
+            qc, w, codes, lsub=lsub, cb=cb),
+            f"K3 B={b} D={d} N={n} lsub={lsub} cb={cb} {variant} "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+
+def check_k5(lib) -> None:
+    for b, d, n, lsub, cb, topt, variant in K5_CASES:
+        qc, qs, codes, scales, norms, _ = _bucket_operands(b, d, n, lsub, cb,
+                                                           variant)
+        assert topt <= lib.idt_topt_max_topt(d, lsub)
+        for is_dot in (False, True):
+            nm = torch.where(torch.isfinite(norms), 0.0, norms) \
+                if is_dot else norms
+            t0 = time.perf_counter()
+            od = torch.zeros((b, n // cb * topt))
+            oi = torch.zeros((b, n // cb * topt), dtype=torch.int32)
+            assert lib.idt_topt_scan(_ptr(qc), _ptr(qs), _ptr(codes),
+                                     _ptr(scales), _ptr(nm), _ptr(od),
+                                     _ptr(oi), b, d, n, lsub, cb, topt,
+                                     int(is_dot), None) == 0
+            _same((od, oi), tsk.fused_scan_topt_plain(
+                qc, qs, codes, scales, nm, lsub=lsub, topt=topt, cb=cb,
+                is_dot=is_dot),
+                f"K5 B={b} D={d} N={n} lsub={lsub} cb={cb} topt={topt} "
+                f"is_dot={is_dot} {variant} "
+                f"({time.perf_counter() - t0:.1f} s)")
+
+
 def main(argv=None) -> int:
-    which = (argv or sys.argv[1:] or ["all"])[0]
+    which = argv or sys.argv[1:] or ["k1", "k2", "k3", "k5"]
     libs = build()
-    if which in ("all", "k1"):
-        check_k1(libs["scan_kernel"])
-    if which in ("all", "k2"):
-        check_k2(libs["bucket_kernel"])
+    checks = {"k1": (check_k1, "scan_kernel"), "k2": (check_k2, "bucket_kernel"),
+              "k3": (check_k3, "bucket_kernel"),
+              "k5": (check_k5, "bucket_kernel")}
+    for name in which:
+        check, stem = checks[name]
+        check(libs[stem])
     return 0
 
 
