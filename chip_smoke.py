@@ -11,12 +11,14 @@ against its plain torch version:
                 tensor-core and __dp4a instruction counts (cuobjdump
                 -sass), and fails unless every scan kernel (K1/K6, K2,
                 K3, K5) runs on the int8 tensor cores with no __dp4a;
+                prints K4's shared memory a block and blocks an SM at
+                the packed calls' shapes;
   3. kernels  — each kernel (K1 packed keys, K2 bucket, K3 bucket_int,
                 K5 topt, K4 walk, K6 probe in its three modes) vs its
                 plain version on random inputs from a seeded generator on
                 the card: a slice, then the paths' own call shapes (K4 on
                 a random valid graph of 65,536 nodes, K = 64, D 128 and
-                300, both merges, expand 1 and 2); results bit-exact,
+                300, expand 1 and 2); results bit-exact,
                 both timed with CUDA events in turns, each scan with its
                 TOP/s and its share of the bound; torch._int_mm on K1's
                 product as the yardstick of K6's "mm" mode; K6 also at
@@ -31,10 +33,11 @@ against its plain torch version:
   5. hnsw     — Hnsw.build at --build-n points (default 1M) of that data,
                 then search_batch(ef=50): build time, qps, recall (K1);
   6. packed   — the serving flow on that index: dump (native npz), load,
-                PackedHnsw.from_index, search_batch_kernel (K4, both
-                merges) on an 8192-query batch with the seed scan, K4
-                against its plain version at that very call, and the
-                plain-op search_batch at the same settings;
+                PackedHnsw.from_index, search_batch_kernel (K4) on an
+                8192-query batch with the seed scan, once more with
+                merge="extract" (the same kernel), K4 against its plain
+                version at that very call, and the plain-op search_batch
+                at the same settings;
   7. scan300  — fastText-shaped data (1M x 300, the width of the
                 reference binding's FloatArray): ScanIndex with the same
                 bucket_pack request, which runs K3 at 300-d, then cosine
@@ -498,12 +501,12 @@ def check_walk(torch, wk, what: str, args, kw, iters: int = 3):
 
 def phase_walk(torch, dev):
     """Phase 3, K4: a random valid graph of WALK_N nodes at D 128 and
-    300, seed-scan beams, both merges, expand 1 and 2.  Returns the
-    record of the first case."""
+    300, seed-scan beams, expand 1 and 2.  Returns the record of the
+    serving setting's case (D 128, expand 2)."""
     from instant_distance_tpu_torch.ops import packed as pk
     from instant_distance_tpu_torch.ops import walk_kernel as wk
 
-    first = None
+    record = None
     for d in (DIM, DIM300):
         g = torch.Generator(device=dev).manual_seed(d)
         pts = torch.randn((WALK_N, d), generator=g, device=dev)
@@ -513,15 +516,14 @@ def phase_walk(torch, dev):
         beams = pk.seeded_beam(queries, pts[:WALK_S].to(torch.bfloat16),
                                WALK_EF)
         args = (queries, *beams, *zero)
-        for merge in wk.MERGES:
-            for expand in wk.EXPANDS:
-                kw = dict(expand=expand, ef=WALK_EF,
-                          max_iters=8 * WALK_EF + 16, merge=merge)
-                rec = check_walk(torch, wk, "random graph", args, kw)
-                first = first or rec
+        for expand in wk.EXPANDS:
+            kw = dict(expand=expand, ef=WALK_EF, max_iters=8 * WALK_EF + 16)
+            rec = check_walk(torch, wk, "random graph", args, kw)
+            if d == DIM and expand == PACKED_KW["expand"]:
+                record = rec
         del pts, zero, queries, beams, args
         torch.cuda.empty_cache()
-    return first
+    return record
 
 
 # ---------------------------------------------------------------------------
@@ -664,11 +666,11 @@ def _attribution(torch, tsk, launches, pts, queries):
 def _packed_path(torch, idt, launches, path, index, queries, *,
                  plain_route: bool):
     """The serving flow on a built index: PackedHnsw.from_index, then
-    search_batch_kernel (K4, both merges) on the whole query batch, K4
-    against its plain version at that very call (both merges) and, with
+    search_batch_kernel (K4) on the whole query batch, once more with
+    merge="extract" (the JAX package's default name, the same kernel),
+    K4 against its plain version at that very call and, with
     ``plain_route``, the plain-op search_batch at the same settings.
-    Returns (packed index, K4's record at the call with the default
-    merge, "count")."""
+    Returns (packed index, K4's record at that call)."""
     from instant_distance_tpu_torch.ops import packed as pk
     from instant_distance_tpu_torch.ops import walk_kernel as wk
 
@@ -704,21 +706,20 @@ def _packed_path(torch, idt, launches, path, index, queries, *,
         _check_recall(recs, name)
         return name
 
-    for merge in wk.MERGES:
-        launches.need(serve(packed.search_batch_kernel, merge=merge),
-                      ["walk_search"])
+    launches.need(serve(packed.search_batch_kernel), ["walk_search"])
+    launches.need(serve(packed.search_batch_kernel, merge="extract"),
+                  ["walk_search"])
     if plain_route:
         launches.need(serve(packed.search_batch), [], absent=["walk_search"])
     ef = PACKED_KW["ef"]
     beams = pk.seeded_beam(
         queries, packed.points[:PACKED_KW["entry_seeds"]].to(torch.bfloat16),
         ef)
-    records = [check_walk(
+    record = check_walk(
         torch, wk, f"{path} call", (queries, *beams, *packed.zero_pack),
         dict(expand=PACKED_KW["expand"], ef=ef,
-             max_iters=index.config.max_iter_factor * ef + 16, merge=merge))
-        for merge in wk.MERGES]
-    return packed, records[0]
+             max_iters=index.config.max_iter_factor * ef + 16))
+    return packed, record
 
 
 def main(argv=None) -> int:
@@ -756,6 +757,14 @@ def main(argv=None) -> int:
            + (" | ".join(_ptxas_summary(_build.build_log))
               or "none (the libraries were built before)"))
     _phase("build", "sass: " + " | ".join(_sass_check(_build)))
+    from instant_distance_tpu_torch.ops import walk_kernel as wk
+
+    _phase("build", f"K4 ({wk.STAGE_BYTES} B of staged codes at most): "
+           + "; ".join(
+               f"{what} shared memory %d B a block, %d blocks an SM"
+               % wk.block_shape(d, WALK_K, PACKED_KW["ef"],
+                                PACKED_KW["expand"])
+               for what, d in (("D=128 K=64", DIM), ("D=300 K=64", DIM300))))
 
     # -- 3. kernels vs plain ---------------------------------------------
     records = phase_kernels(torch, tsk, dev)

@@ -15,7 +15,7 @@ import torch
 
 from ..ops.distance import resolve
 from ..ops.sort import sort2
-from ..utils.convert import as_tensor
+from ..utils.convert import as_queries, as_tensor
 
 _I32MAX = np.iinfo(np.int32).max
 
@@ -33,9 +33,7 @@ class BruteForce:
 
     def search_batch(self, queries, k: int):
         """Exact top-k for a [B, D] query batch -> (dists [B,k], ids [B,k])."""
-        queries = as_tensor(queries, self.device, torch.float32)
-        if queries.dim() == 1:
-            queries = queries[None]
+        queries = as_queries(queries, self.device, self.points.shape[1])
         n = self.points.shape[0]
         b = queries.shape[0]
         k = int(min(k, n))

@@ -4,8 +4,10 @@ of ``instant_distance_tpu/models/hnsw.py``).
 Same names, arguments and results as the JAX package, with torch tensors
 where it returns jax arrays.  An index lives on the device of the tensors
 it was built from (``index.device``); ``load`` takes a ``device``
-(default: the CUDA card).  Incremental ``add`` waits (ROADMAP.md, still
-to port).
+(default: the CUDA card).  What the port lacks still raises
+NotImplementedError naming its ROADMAP.md item: ``add`` (§1 item 2),
+``build(backend="native")`` (§1 item 3) and ``build(checkpoint=...)``
+(§1 item 1).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from ..config import Config
 from ..ops.beam import hnsw_search
 from ..ops.construct import BuiltGraph, build_graph
 from ..ops.distance import resolve, torch_dtype
-from ..utils.convert import as_tensor
+from ..utils.convert import as_queries, as_tensor
 
 
 @dataclasses.dataclass
@@ -89,13 +91,32 @@ class Search:
         return int((self._pids >= 0).sum())
 
 
-def _check_points(arr, what: str, dim: Optional[int] = None):
-    if arr.dim() != 2:
-        raise ValueError(f"{what} must be a [N, D] 2-D array, got shape "
-                         f"{tuple(arr.shape)}")
-    if dim is not None and arr.shape[0] and arr.shape[1] != dim:
-        raise ValueError(f"{what} dim {arr.shape[1]} != index dim {dim}")
-    return arr
+ADD_TODO = ("incremental add (extend_graph) is not ported yet "
+            "(ROADMAP.md §1 item 2)")
+
+
+def _check_build_options(backend: str, checkpoint) -> None:
+    """NotImplementedError for the build options the port lacks."""
+    if backend == "native":
+        raise NotImplementedError(
+            'backend="native" needs the host engine, which is not ported '
+            "yet (ROADMAP.md §1 item 3)")
+    if checkpoint is not None:
+        raise NotImplementedError(
+            "build checkpoints are not ported yet (ROADMAP.md §1 item 1)")
+
+
+def tombstoned(alive, n: int, ids, device, what: str):
+    """A new [n] bool mask: ``alive`` (None = all alive) with ``ids``
+    cleared; IndexError for an id out of range.  Never writes into
+    ``alive``, which ``from_index`` children may share."""
+    idx = np.atleast_1d(np.asarray(ids, np.int64))
+    if idx.size and (idx.min() < 0 or idx.max() >= n):
+        raise IndexError(f"{what} out of range")
+    out = (torch.ones(n, dtype=torch.bool, device=device) if alive is None
+           else alive.clone())
+    out[torch.as_tensor(idx, device=device)] = False
+    return out
 
 
 class Hnsw:
@@ -121,30 +142,46 @@ class Hnsw:
     # -- construction ------------------------------------------------------
     @classmethod
     def build(cls, points, config: Optional[Config] = None, *,
-              progress=None, device=None) -> tuple["Hnsw", np.ndarray]:
+              progress=None, backend: str = "wave",
+              checkpoint: Optional[str] = None, checkpoint_every: int = 64,
+              device=None) -> tuple["Hnsw", np.ndarray]:
         """Build the index; returns (index, ids) where ids maps the
         original point order to PointIds.  Builds on ``points``' device
         when it is a tensor, else on ``device`` (the CUDA card by
-        default; without one it raises)."""
+        default; without one it raises).  ``backend="native"`` and
+        ``checkpoint`` are not ported yet and raise NotImplementedError;
+        ``checkpoint_every`` only applies with a checkpoint."""
         config = config or Config()
         if len(np.shape(points)) != 2:
             raise ValueError(f"points must be a [N, D] 2-D array, got "
                              f"shape {tuple(np.shape(points))}")
+        _check_build_options(backend, checkpoint)
         g: BuiltGraph = build_graph(points, config, progress=progress,
                                     device=device)
         index = cls(g.points, g.zero, g.layers, config)
         index.reverse_drops = g.reverse_drops
         return index, g.ids
 
+    def add(self, new_points, *, progress=None) -> np.ndarray:
+        """Append points: not ported yet (ROADMAP.md §1 item 2)."""
+        raise NotImplementedError(ADD_TODO)
+
     def delete(self, pids) -> None:
-        """Tombstone points: excluded from results, still routed through."""
+        """Tombstone points: excluded from results, still routed through.
+        Makes a new mask, as the JAX package does, so an index and the
+        ``from_index`` children that share its mask never see each
+        other's deletes."""
+        self._alive = tombstoned(self._alive, len(self), pids, self.device,
+                                 "pid")
+
+    def is_deleted(self, pid: int) -> bool:
+        return self._alive is not None and not bool(self._alive[pid])
+
+    @property
+    def n_deleted(self) -> int:
         if self._alive is None:
-            self._alive = torch.ones(len(self), dtype=torch.bool,
-                                     device=self.device)
-        idx = np.atleast_1d(np.asarray(pids, np.int64))
-        if idx.size and (idx.min() < 0 or idx.max() >= len(self)):
-            raise IndexError("pid out of range")
-        self._alive[torch.as_tensor(idx, device=self.device)] = False
+            return 0
+        return int((~self._alive).sum())
 
     # -- queries -----------------------------------------------------------
     def _eligible(self, filter_mask):
@@ -164,10 +201,7 @@ class Hnsw:
         ``filter_mask`` (bool [N], pid order): only mask-true points may
         appear in results; traversal still routes through the rest.
         """
-        queries = as_tensor(queries, self.device, torch.float32)
-        if queries.dim() == 1:
-            queries = queries[None]
-        _check_points(queries, "queries", self.points.shape[1])
+        queries = as_queries(queries, self.device, self.points.shape[1])
         cfg = self.config
         ef = ef or cfg.ef_search
         k = k or ef
@@ -245,16 +279,23 @@ class HnswMap(Hnsw):
 
     @classmethod
     def build(cls, points, values, config: Optional[Config] = None, *,
-              progress=None, device=None) -> "HnswMap":
+              progress=None, backend: str = "wave",
+              checkpoint: Optional[str] = None, device=None) -> "HnswMap":
         if len(points) != len(values):
             raise ValueError("points and values must have the same length")
         config = config or Config()
         hnsw, ids = Hnsw.build(points, config, progress=progress,
+                               backend=backend, checkpoint=checkpoint,
                                device=device)
         reordered = [None] * len(values)
         for src, pid in enumerate(ids):
             reordered[pid] = values[src]
         return cls(hnsw.points, hnsw.zero, hnsw.layers, config, reordered)
+
+    def add(self, new_points, values=None, *, progress=None) -> np.ndarray:
+        """Append (point, value) pairs: not ported yet (ROADMAP.md §1
+        item 2)."""
+        raise NotImplementedError(ADD_TODO)
 
     def search(self, point, search: Search) -> Iterator[Neighbor]:
         if len(self) == 0:

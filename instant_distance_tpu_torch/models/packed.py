@@ -11,9 +11,10 @@ only its storage changes.  Two routes:
 * :meth:`PackedHnsw.search_batch_kernel`: the seed scan, then the whole
   zero-layer walk in kernel K4 (``ops/walk_kernel.py``), then the rerank.
 
-The JAX package's TPU knobs ``bq``, ``fused_rows`` and the 128-lane
-points copy (``_points_lanes``) have no counterpart: the card's kernel
-reads the three packed arrays as they are, at any D.
+The JAX package's TPU knobs ``bq`` and ``fused_rows`` are accepted and
+change nothing, and its 128-lane points copy (``_points_lanes``) has no
+counterpart: the card's kernel reads the three packed arrays as they
+are, at any D, one query a thread block.
 """
 
 from __future__ import annotations
@@ -29,8 +30,8 @@ from ..config import Config
 from ..ops import packed as pk
 from ..ops.distance import resolve
 from ..ops.walk_kernel import walk_search
-from ..utils.convert import as_tensor
-from .hnsw import Hnsw, HnswMap
+from ..utils.convert import as_queries, as_tensor
+from .hnsw import Hnsw, HnswMap, tombstoned
 
 _MAGIC = "instant-distance-tpu/packed/v1"
 
@@ -85,13 +86,8 @@ class PackedHnsw:
 
     # -- tombstones (same semantics as Hnsw.delete) -------------------------
     def delete(self, pids) -> None:
-        if self._alive is None:
-            self._alive = torch.ones(len(self), dtype=torch.bool,
-                                     device=self.device)
-        idx = np.atleast_1d(np.asarray(pids, np.int64))
-        if idx.size and (idx.min() < 0 or idx.max() >= len(self)):
-            raise IndexError("pid out of range")
-        self._alive[torch.as_tensor(idx, device=self.device)] = False
+        self._alive = tombstoned(self._alive, len(self), pids, self.device,
+                                 "pid")
 
     def _eligible(self, filter_mask):
         eligible = self._alive
@@ -116,20 +112,23 @@ class PackedHnsw:
         return self._seed_cache
 
     def _queries(self, queries):
-        queries = as_tensor(queries, self.device, torch.float32)
-        return queries[None] if queries.dim() == 1 else queries
+        return as_queries(queries, self.device, self.points.shape[1])
 
     # -- queries -------------------------------------------------------------
     def search_batch_kernel(self, queries, k: Optional[int] = None,
                             ef: Optional[int] = None, rerank: bool = True,
                             entry_seeds: Optional[int] = None,
                             expand: Optional[int] = None,
+                            bq: int = 128, fused_rows: bool = True,
                             merge: str = "count"):
         """Batched query through the fused walk kernel K4.
 
         Same traversal as ``search_batch`` on valid graphs; needs
         ``entry_seeds`` > 0 (the seed scan makes the initial beams) and
-        ``expand`` in {1, 2}; ``merge`` is the kernel's merge strategy.
+        ``expand`` in {1, 2}.  ``merge`` ("count" or "extract", the JAX
+        package's strategies) is accepted and, like the TPU layout knobs
+        ``bq`` and ``fused_rows``, changes nothing: both names launch the
+        one kernel, which returns the beam both strategies define.
         Result filters and tombstones are not routed here (use
         ``search_batch``).  Returns (dists [B, k], pids [B, k]).
         """

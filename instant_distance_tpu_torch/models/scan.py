@@ -19,7 +19,8 @@ The search paths of the JAX package:
 Candidate selection is exact ``torch.topk`` where the JAX package used
 ``approx_min_k`` (exact on its CPU reference, approximate on the TPU).
 ``sel_group`` / ``sel_kgroup``, the grouped selection of
-``"bucket_pack"``, waits (ROADMAP.md §1 item 3).
+``"bucket_pack"``, waits (ROADMAP.md §1 item 7), and so does ``add``
+(§1 item 2): both raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -40,7 +41,8 @@ from ..ops.scan_kernel import (INT_RANK_LIMIT, PACK_OFFSET,
                                int8_matmul, pack_operands, pack_w2,
                                quantize_batch)
 from ..ops.sort import sort2
-from ..utils.convert import as_tensor
+from ..utils.convert import as_queries, as_tensor
+from .hnsw import ADD_TODO, tombstoned
 
 _I32MAX = np.iinfo(np.int32).max
 _MAGIC = "instant-distance-tpu/scan/v1"
@@ -296,15 +298,20 @@ class ScanIndex:
     def __len__(self) -> int:
         return int(self.points.shape[0])
 
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.points, self.codes, self.scales,
+                             self.norms))
+
+    def add(self, new_points, values=None) -> np.ndarray:
+        """Append points: not ported yet (ROADMAP.md §1 item 2)."""
+        raise NotImplementedError(ADD_TODO)
+
     def delete(self, ids) -> None:
-        """Tombstone ids: they are never scored into results again."""
-        if self._alive is None:
-            self._alive = torch.ones(len(self), dtype=torch.bool,
-                                     device=self.device)
-        idx = np.atleast_1d(np.asarray(ids, np.int64))
-        if idx.size and (idx.min() < 0 or idx.max() >= len(self)):
-            raise IndexError("id out of range")
-        self._alive[torch.as_tensor(idx, device=self.device)] = False
+        """Tombstone ids: they are never scored into results again (a new
+        mask each time, as in :meth:`Hnsw.delete`)."""
+        self._alive = tombstoned(self._alive, len(self), ids, self.device,
+                                 "id")
 
     def _eligible(self, filter_mask):
         eligible = self._alive
@@ -333,10 +340,12 @@ class ScanIndex:
         return self._fused_int[cb]
 
     def search_batch(self, queries, k: int = 10, ef: Optional[int] = None,
-                     rerank: bool = True, filter_mask=None, tile: int = 0,
+                     rerank: bool = True, filter_mask=None,
+                     approx_topk: bool = False, tile: int = 0,
                      fused=False, topt: int = 8, lsub: int = 16,
-                     cb: int = 0, inner: int = 1, sel_group: int = 0,
-                     sel_kgroup: int = 0):
+                     qb: int = 0, cb: int = 0, inner: int = 1,
+                     slab: bool = False, sel_group: int = 0,
+                     sel_kgroup: int = 0, sel_target: float = 0.95):
         """[B, D] -> (dists [B, k], ids [B, k]); ids = input order.
 
         Arguments as in the JAX package.  ``fused`` picks the scan
@@ -345,13 +354,12 @@ class ScanIndex:
         for the bucket modes at the default cb, as in the JAX package);
         ``inner`` only pads the point axis to ``cb * inner`` (the TPU
         grid's sub-chunking).  The JAX package's TPU tiling and
-        approximate-selection knobs (``qb``, ``slab``, ``approx_topk``,
-        ``sel_target``) have no counterpart: the port has one kernel
-        body per mode and selects exactly.
+        approximate-selection knobs ``qb``, ``slab``, ``approx_topk`` and
+        ``sel_target`` are accepted and change nothing: the port has one
+        kernel body per mode and selects exactly, which is at least as
+        good as any approximate selection.
         """
-        queries = as_tensor(queries, self.device, torch.float32)
-        if queries.dim() == 1:
-            queries = queries[None]
+        queries = as_queries(queries, self.device, self.points.shape[1])
         ef = ef or max(4 * k, 32)
         ef = int(min(ef, len(self)))
         k = int(min(k, ef))
@@ -375,7 +383,7 @@ class ScanIndex:
                 if sel_group > 1 or sel_kgroup > 1:
                     raise NotImplementedError(
                         "sel_group/sel_kgroup grouped selection is not "
-                        "ported yet (ROADMAP.md §1 item 3)")
+                        "ported yet (ROADMAP.md §1 item 7)")
                 codes_t, norms_r, sg = self._fused_int_arrays(cb * inner)
                 d, i = _fused_int_packed_search(
                     queries, codes_t, norms_r, sg, self.points, eligible,

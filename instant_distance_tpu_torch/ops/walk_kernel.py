@@ -17,12 +17,16 @@ graphs, whose adjacency rows hold distinct pids (``utils/validate.py``
 of the JAX package): like the TPU kernel, the walk does not dedup inside
 one row.
 
-:func:`walk_search` launches the CUDA kernel (``csrc/walk_kernel.cu``)
-on CUDA tensors and counts the launch in ``launches["walk_search"]``; on
-CPU tensors it runs :func:`walk_search_plain`.  Left out of the port:
-the TPU layouts ``pack_walk_meta``/``pack_walk_fused`` (DMA issue cost
-on the TPU's scalar core; the card reads the three arrays as they are)
-and the ``bq``/``fused_rows``/``k`` knobs.
+:func:`walk_search` launches the CUDA kernel (``csrc/walk_kernel.cu``:
+one thread block a query, each step's rows staged into shared memory by
+``cp.async``, a merge by ranks) on CUDA tensors and counts the launch in
+``launches["walk_search"]``; on CPU tensors it runs
+:func:`walk_search_plain`.  The JAX package's two merge strategies,
+``"count"`` and ``"extract"``, define one beam; both names are accepted
+and run the one kernel.  Left out of the port: the TPU layouts
+``pack_walk_meta``/``pack_walk_fused`` (DMA issue cost on the TPU's
+scalar core; the card reads the three arrays as they are) and the
+``bq``/``fused_rows``/``k`` knobs.
 """
 
 from __future__ import annotations
@@ -35,12 +39,15 @@ from .scan_kernel import _launch, _on_card, _ptr
 from .sort import sort2
 
 #: Largest beam the kernel keeps in shared memory, its expand widths,
-#: and its largest candidate pool a step (expand * K: one dedup bit per
-#: candidate of each of its 128 threads).
+#: and its largest candidate pool a step (expand * K).
 MAX_EF = 256
 EXPANDS = (1, 2)
-MAX_POOL = 32 * 128
+MAX_POOL = 4096
+#: The JAX package's merge strategies; one beam, one kernel.
 MERGES = ("count", "extract")
+#: Bytes of codes a block stages at once (>= 4096; a step's rows past
+#: it are staged in chunks).
+STAGE_BYTES = 20480
 
 
 def _check(queries, beam_d0, beam_p0, ids, codes, scales, expand: int,
@@ -81,10 +88,11 @@ def walk_search_plain(queries, beam_d0, beam_p0, ids, codes, scales, *,
                       merge: str = "count", return_work: bool = False):
     """Plain torch version of :func:`walk_search`: the same steps over the
     whole batch at once (a converged query's step changes nothing), the
-    merge as one stable (dist, pid) sort, which is the order both merge
-    modes produce.  With ``return_work`` it also returns the kernel's
-    work over all queries: the rows expanded (each read's K ids) and
-    the valid neighbours in them (each read's D codes and scale)."""
+    merge as one stable (dist, pid) sort, the order both of the JAX
+    package's merge strategies produce.  With ``return_work`` it also
+    returns the work over all queries that K4's bound counts: the rows
+    expanded (each read's K ids) and the valid neighbours in them (each
+    one's D codes and scale)."""
     _check(queries, beam_d0, beam_p0, ids, codes, scales, expand, ef, merge)
     b = queries.shape[0]
     k = ids.shape[1]
@@ -137,9 +145,8 @@ def walk_search(queries, beam_d0, beam_p0, ids, codes, scales, *,
       ids, codes, scales: the packed zero layer, [N, K] int32, [N, K, D]
         int8 and [N, K] f32.
       expand: beam entries expanded per step, 1 or 2.
-      merge: "count" (a counting rank per pool entry, the faster on the
-        card) or "extract" (ef min-extraction rounds); the same beam
-        either way.
+      merge: "count" or "extract", the JAX package's merge strategies,
+        which define the same beam: both launch the one kernel.
     Returns (bd [B, ef] f32 approximate distances, bp [B, ef] int32),
     sorted by (dist, pid).  Requires ef <= 256.
 
@@ -161,5 +168,16 @@ def walk_search(queries, beam_d0, beam_p0, ids, codes, scales, *,
         _launch("walk_search", "idt_walk_search", dev, _ptr(queries),
                 _ptr(beam_d0), _ptr(beam_p0), _ptr(ids), _ptr(codes),
                 _ptr(scales), _ptr(bd), _ptr(bp), b, d, k, ef, expand,
-                max_iters, int(merge == "count"))
+                max_iters, STAGE_BYTES)
     return bd, bp
+
+
+def block_shape(d: int, k: int, ef: int, expand: int):
+    """(dynamic shared memory bytes of one K4 block, blocks an SM holds
+    at once) at this shape with :data:`STAGE_BYTES`; needs the card
+    (builds the kernels on first use)."""
+    from ._build import library
+
+    lib = library()
+    return (lib.idt_walk_smem(d, k, ef, expand, STAGE_BYTES),
+            lib.idt_walk_occupancy(d, k, ef, expand, STAGE_BYTES))

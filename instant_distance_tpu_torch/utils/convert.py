@@ -40,6 +40,22 @@ def as_tensor(x, device=None, dtype=None):
     return torch.as_tensor(a, dtype=dtype, device=default_device(device))
 
 
+def as_queries(queries, device, dim: int):
+    """A query batch as a [B, dim] f32 tensor on ``device`` (one query
+    becomes a batch of one); ValueError on any other shape, an empty
+    batch included."""
+    queries = as_tensor(queries, device, torch.float32)
+    if queries.dim() == 1:
+        queries = queries[None]
+    if queries.dim() != 2:
+        raise ValueError(f"queries must be a [B, D] 2-D array, got shape "
+                         f"{tuple(queries.shape)}")
+    if queries.shape[1] != dim:
+        raise ValueError(f"queries dim {queries.shape[1]} != index dim "
+                         f"{dim}")
+    return queries
+
+
 def hnsw_from_arrays(points, zero, layers, config, device=None):
     """An :class:`~instant_distance_tpu_torch.models.hnsw.Hnsw` over the
     given graph arrays (pid order; ``layers[l-1]`` is level l), on

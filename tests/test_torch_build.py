@@ -41,6 +41,7 @@ reasoning is in CHANGES.md).
 """
 
 import dataclasses
+import inspect
 import os
 import subprocess
 import sys
@@ -51,6 +52,7 @@ import numpy as np
 import pytest
 import torch
 
+import instant_distance_tpu as jpkg
 from instant_distance_tpu import config as jconfig
 from instant_distance_tpu.models.hnsw import Hnsw as JaxHnsw
 from instant_distance_tpu.ops import construct as jc
@@ -59,7 +61,8 @@ from instant_distance_tpu.ops import select as jsel
 from instant_distance_tpu.utils import datasets as jdatasets
 from instant_distance_tpu.utils import metrics as jmetrics
 from instant_distance_tpu.utils.validate import validate_graph
-from instant_distance_tpu_torch import Builder, ScanIndex
+import instant_distance_tpu_torch as tpkg
+from instant_distance_tpu_torch import Builder, PackedHnsw, ScanIndex
 from instant_distance_tpu_torch import config as tconfig
 from instant_distance_tpu_torch.models.brute import BruteForce
 from instant_distance_tpu_torch.models.hnsw import Hnsw, HnswMap, Search
@@ -382,6 +385,88 @@ def _check_card_default():
             call()
 
 
+def _check_from_index_tombstones(arrays):
+    """A delete on an index, or on a ``from_index`` child, is seen by no
+    other object: each keeps its own mask (the JAX package makes a new
+    array on every delete)."""
+    h = hnsw_from_arrays(*arrays, SEARCH_CFG, device="cpu")
+    h.delete([1])
+    scan = ScanIndex.from_index(h)
+    scan.delete([5])
+    packed = PackedHnsw.from_index(h)
+    packed.delete([7])
+    h.delete([9])
+    for obj, dead in ((h, [1, 9]), (scan, [1, 5]), (packed, [1, 7])):
+        got = (~obj._alive).nonzero().flatten().tolist()
+        assert got == dead, (type(obj).__name__, got)
+    assert h.is_deleted(9) and not h.is_deleted(5) and h.n_deleted == 2
+    assert hnsw_from_arrays(*arrays, SEARCH_CFG, device="cpu").n_deleted == 0
+
+
+def _check_signatures():
+    """Every public method of every class both packages export takes the
+    reference's parameter names; the port adds ``device`` and nothing
+    else.  What the port lacks raises NotImplementedError naming its
+    ROADMAP.md item, never TypeError."""
+    for name in sorted(set(jpkg.__all__) & set(tpkg.__all__)):
+        ref, port = getattr(jpkg, name), getattr(tpkg, name)
+        if not inspect.isclass(ref):
+            continue
+        for attr, member in vars(ref).items():
+            if attr.startswith("_") and attr != "__init__":
+                continue
+            if isinstance(member, property):
+                assert isinstance(inspect.getattr_static(port, attr, None),
+                                  property), (name, attr)
+                continue
+            if not callable(getattr(ref, attr)):
+                continue
+            want = list(inspect.signature(getattr(ref, attr)).parameters)
+            got = list(inspect.signature(getattr(port, attr)).parameters)
+            assert [p for p in got if p != "device"] == want, \
+                (name, attr, got, want)
+    pts = np.zeros((40, 4), np.float32)
+    h = hnsw_from_arrays(pts, np.full((40, 16), -1, np.int32), [],
+                         SEARCH_CFG, device="cpu")
+    hmap = HnswMap(h.points, h.zero, h.layers, SEARCH_CFG, list(range(40)))
+    for call, item in (
+            (lambda: h.add(pts[:2]), "§1 item 2"),
+            (lambda: hmap.add(pts[:2], [0, 1]), "§1 item 2"),
+            (lambda: ScanIndex(pts, device="cpu").add(pts[:2]), "§1 item 2"),
+            (lambda: Hnsw.build(pts, CFG, backend="native", device="cpu"),
+             "§1 item 3"),
+            (lambda: Hnsw.build(pts, CFG, checkpoint="c", device="cpu"),
+             "§1 item 1"),
+            (lambda: HnswMap.build(pts, list(range(40)), CFG, checkpoint="c",
+                                   device="cpu"), "§1 item 1")):
+        with pytest.raises(NotImplementedError, match=item):
+            call()
+
+
+def _check_empty_batch_width(arrays):
+    """A [0, D + 1] batch raises ValueError at every search entry point
+    (the JAX package lets an empty batch of any width through)."""
+    h = hnsw_from_arrays(*arrays, SEARCH_CFG, device="cpu")
+    hmap = HnswMap(h.points, h.zero, h.layers, SEARCH_CFG, list(range(N)))
+    scan = ScanIndex.from_index(hmap)
+    packed = PackedHnsw.from_index(hmap)
+    bad = torch.zeros((0, D + 1))
+    for call in (lambda: h.search_batch(bad, 3, 10),
+                 lambda: h.search(bad, Search()),
+                 lambda: hmap.search(bad, Search()),
+                 lambda: hmap.search_batch_values(bad, 3),
+                 lambda: scan.search_batch(bad),
+                 lambda: scan.search_batch(bad, fused="bucket_pack", lsub=16,
+                                           cb=256),
+                 lambda: scan.search_batch_values(bad),
+                 lambda: BruteForce(h.points).search_batch(bad, 3),
+                 lambda: packed.search_batch(bad),
+                 lambda: packed.search_batch_kernel(bad, entry_seeds=64),
+                 lambda: packed.search_batch_values(bad)):
+        with pytest.raises(ValueError, match="dim"):
+            call()
+
+
 def test_build_and_search_match_jax():
     rng = np.random.default_rng(7)
     pts = rng.random((N, D), dtype=np.float32)
@@ -397,6 +482,9 @@ def test_build_and_search_match_jax():
     for variant in SEARCH_VARIANTS:
         _check_search(arrays, queries, variant)
     _check_map_api(arrays, queries)
+    _check_from_index_tombstones(arrays)
+    _check_empty_batch_width(arrays)
+    _check_signatures()
     check_packed_path(arrays, queries)
 
     _check_k2_builds()

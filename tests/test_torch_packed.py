@@ -354,9 +354,27 @@ def check_cpu(arrays, queries):
 # the card: K4 and K6 against their plain versions
 # ---------------------------------------------------------------------------
 
-#: K4: (B, D, N, K); each case runs ef 12 and 50, both merges, expand 1
-#: and 2.  B = 100 is a ragged batch, D = 300 the 300-d path's width.
-WALK_CASES = ((256, 16, 2048, 16), (256, 128, 4096, 64), (100, 300, 2048, 32))
+#: K4: (B, D, N, K); each case runs ef 12, 50 and 256 and expand 1 and
+#: 2.  In every batch the second query's beam is the seeded beam in a
+#: shuffled slot order (the kernel ranks the caller's beam once) and the
+#: third's is all (inf, -1).  ef 50 runs the "ties" data (every odd point
+#: a copy of the even one before it: equal distances between pids); ef
+#: 12 stages at most SMALL_STAGE bytes of codes at once, so the rows pass
+#: the staging buffer (whole-row chunks, or 32 rows times a slice of D at
+#: D = 300).  B = 100 is a ragged batch, D = 300
+#: the 300-d path's width, D = 30 not a multiple of 4.
+WALK_CASES = tuple((b, d, n, k) for b, d, n in ((256, 16, 2048),
+                                                (100, 30, 2048),
+                                                (256, 128, 4096),
+                                                (100, 300, 2048))
+                   for k in (8, 64))
+#: More K4 cases: (B, D, N, K, ef, expand, variant).  Odd row sizes take
+#: 4-byte cp.async and plain loads, as do misaligned codes; K = 2048 with
+#: expand 2 is the largest pool, 4096 candidates a step.
+WALK_EXTRA = ((64, 33, 1024, 5, 16, 2, ""), (64, 18, 1024, 6, 20, 1, ""),
+              (64, 64, 1024, 16, 24, 2, "misaligned"),
+              (16, 20, 4400, 2048, 40, 2, ""))
+SMALL_STAGE = 4096
 #: K6: (B, D, N, lsub, cb)
 PROBE_CASES = ((1024, 128, 65536, 64, 8192), (100, 20, 4096, 16, 1024))
 
@@ -369,35 +387,65 @@ def _launched(name, fn):
     return out
 
 
-def _walk_operands(b, d, n, k, ef, device, seed=0):
+def _walk_operands(b, d, n, k, ef, device, seed=0, variant=""):
     rng = np.random.default_rng(seed)
     pts, adj = _mk_graph(rng, n, d, k)
+    if variant == "ties":
+        pts[1::2] = pts[0::2]
     pts = torch.from_numpy(pts).to(device)
     ids, codes, scales = tpk.pack_layer(torch.from_numpy(adj).to(device),
                                         *tpk.quantize_points(pts))
     queries = torch.from_numpy(
         rng.standard_normal((b, d)).astype(np.float32)).to(device)
     bd0, bp0 = tpk.seeded_beam(queries, pts[:256].to(torch.bfloat16), ef)
+    if b >= 3:
+        perm = torch.from_numpy(rng.permutation(ef)).to(device)
+        bd0[1], bp0[1] = bd0[1][perm], bp0[1][perm]
+        bd0[2], bp0[2] = torch.inf, -1
+    if variant == "misaligned":
+        codes = torch.empty(codes.numel() + 1, dtype=codes.dtype,
+                            device=device)[1:].view(codes.shape).copy_(codes)
     return queries, bd0, bp0, ids, codes, scales
+
+
+def _card_walk(ops, what, stage=None, **kw):
+    """K4 vs its plain version on ``ops``, with the staging buffer set to
+    ``stage`` bytes for the call."""
+    saved = twk.STAGE_BYTES
+    twk.STAGE_BYTES = stage or saved
+    try:
+        got = _launched("walk_search", lambda: twk.walk_search(*ops, **kw))
+    finally:
+        twk.STAGE_BYTES = saved
+    want = twk.walk_search_plain(*ops, **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(_np(g), _np(w), err_msg=f"K4 {what}")
+    return got
 
 
 def _check_card_walk(cuda):
     for b, d, n, k in WALK_CASES:
-        for ef in (12, 50):
-            ops = _walk_operands(b, d, n, k, ef, cuda, seed=b + d)
-            for merge in twk.MERGES:
-                for expand in twk.EXPANDS:
-                    kw = dict(expand=expand, ef=ef, max_iters=8 * ef + 16,
-                              merge=merge)
-                    got = _launched("walk_search",
-                                    lambda: twk.walk_search(*ops, **kw))
-                    want = twk.walk_search_plain(*ops, **kw)
-                    for g, w in zip(got, want):
-                        np.testing.assert_array_equal(
-                            _np(g), _np(w),
-                            err_msg=f"K4 B={b} D={d} K={k} {kw}")
-    queries, bd0, bp0, ids, codes, scales = _walk_operands(
-        8, 16, 256, 8, 12, cuda)
+        for ef in (12, 50, 256):
+            variant = "ties" if ef == 50 else ""
+            ops = _walk_operands(b, d, n, k, ef, cuda, seed=b + d + k,
+                                 variant=variant)
+            for expand in twk.EXPANDS:
+                _card_walk(ops, f"B={b} D={d} K={k} ef={ef} expand={expand} "
+                           f"{variant}",
+                           stage=SMALL_STAGE if ef == 12 else None,
+                           expand=expand,
+                           ef=ef, max_iters=8 * ef + 16)
+    for b, d, n, k, ef, expand, variant in WALK_EXTRA:
+        ops = _walk_operands(b, d, n, k, ef, cuda, seed=d + k,
+                             variant=variant)
+        _card_walk(ops, f"B={b} D={d} K={k} ef={ef} {variant}", stage=8192,
+                   expand=expand, ef=ef, max_iters=8 * ef + 16)
+    # both merge strategies' names launch the one kernel
+    ops = _walk_operands(64, 16, 256, 8, 12, cuda)
+    got = [_card_walk(ops, f"merge={m}", ef=12, merge=m) for m in twk.MERGES]
+    for g, w in zip(*got):
+        assert torch.equal(g, w)
+    queries, bd0, bp0, ids, codes, scales = ops
     bd, bp = _launched("walk_search", lambda: twk.walk_search(
         queries, torch.full_like(bd0, torch.inf), torch.full_like(bp0, -1),
         ids, codes, scales, expand=2, ef=12))

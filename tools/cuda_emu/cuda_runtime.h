@@ -1,9 +1,9 @@
 // A CPU stand-in for the parts of the CUDA runtime and device library that
 // instant_distance_tpu_torch/csrc uses, so that g++ can build and run the
 // kernels (see run.py).  One block runs at a time, one std::thread per
-// CUDA thread; __syncthreads is a block barrier, and the warp-collective
-// ldmatrix / mma.sync that run.py substitutes for the inline PTX meet at a
-// warp barrier.
+// CUDA thread; __syncthreads is a block barrier, and the warp collectives
+// (shuffles, ballots, and the ldmatrix / mma.sync that run.py substitutes
+// for the inline PTX) meet at a warp barrier.
 #pragma once
 #include <barrier>
 #include <climits>
@@ -31,6 +31,7 @@ struct dim3 {
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
 struct uint4 { uint32_t x, y, z, w; };
+struct float4 { float x, y, z, w; };
 inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
   return {a, b, c, d};
 }
@@ -42,12 +43,18 @@ constexpr int cudaSuccess = 0, cudaErrorInvalidValue = 1;
 constexpr int cudaErrorInvalidConfiguration = 9;
 constexpr int cudaFuncAttributeMaxDynamicSharedMemorySize = 8;
 template <class T> int cudaFuncSetAttribute(T, int, int) { return 0; }
+template <class T>
+int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, T, int, size_t) {
+  *n = 1;
+  return 0;
+}
 inline int cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(int) { return "emulated"; }
 
 using std::isfinite;
 using std::isnan;
 inline int min(int a, int b) { return a < b ? a : b; }
+inline int max(int a, int b) { return a > b ? a : b; }
 
 inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
   uint8_t in[8];
@@ -60,12 +67,29 @@ inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
 // volatile: one rounding per operation, never contracted
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
+inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __int2float_rn(int a) { return float(a); }
 inline int __ffsll(long long x) { return __builtin_ffsll(x); }
 inline float __uint_as_float(uint32_t u) {
   float f;
   memcpy(&f, &u, 4);
   return f;
+}
+inline uint32_t __float_as_uint(float f) {
+  uint32_t u;
+  memcpy(&u, &f, 4);
+  return u;
+}
+inline int __popc(uint32_t x) { return __builtin_popcount(x); }
+inline int __ffs(int x) { return __builtin_ffs(x); }
+// Shared-memory atomics: the block's threads are OS threads.
+inline int atomicCAS(int* p, int expect, int value) {
+  __atomic_compare_exchange_n(p, &expect, value, false, __ATOMIC_SEQ_CST,
+                              __ATOMIC_SEQ_CST);
+  return expect;
+}
+inline int atomicAdd(int* p, int v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }
 
 // The block being run: its shared memory, barriers and the warps'
@@ -76,6 +100,7 @@ struct Emu {
   std::vector<std::unique_ptr<std::barrier<>>> warps;
   uint32_t addr[32][32];
   uint32_t frag[32][32][6];
+  uint64_t xchg[32][32];
 };
 inline Emu* g_emu = nullptr;
 
@@ -84,6 +109,36 @@ inline uint64_t __cvta_generic_to_shared(const void* p) {
   return uint64_t(static_cast<const uint8_t*>(p) - g_emu->smem);
 }
 inline void warp_sync() { g_emu->warps[threadIdx.x / 32]->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) { warp_sync(); }
+
+// The warp collectives, for full warps: every lane posts its value, then
+// reads its source lane's.
+template <class T> T warp_exchange(T v, int src) {
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  uint64_t bits = 0;
+  memcpy(&bits, &v, sizeof(T));
+  g_emu->xchg[w][lane] = bits;
+  warp_sync();
+  bits = g_emu->xchg[w][src];
+  warp_sync();
+  memcpy(&v, &bits, sizeof(T));
+  return v;
+}
+template <class T> T __shfl_xor_sync(unsigned, T v, int off) {
+  return warp_exchange(v, (threadIdx.x % 32) ^ off);
+}
+template <class T> T __shfl_sync(unsigned, T v, int src) {
+  return warp_exchange(v, src);
+}
+inline unsigned __ballot_sync(unsigned, bool pred) {
+  const int w = threadIdx.x / 32;
+  g_emu->xchg[w][threadIdx.x % 32] = pred;
+  warp_sync();
+  unsigned m = 0;
+  for (int l = 0; l < 32; ++l) m |= unsigned(g_emu->xchg[w][l] != 0) << l;
+  warp_sync();
+  return m;
+}
 
 // Runs fn (the kernel with its arguments bound) on every block in turn,
 // shared memory filled with garbage first, as on the card.

@@ -1,18 +1,20 @@
-"""Run the tensor-core scan kernels (K1 and its probe K6, K2, K3, K5) on
-the CPU.
+"""Run the CUDA kernels on the CPU: the tensor-core scan kernels (K1 and
+its probe K6, K2, K3, K5) and the packed walk K4.
 
-A check of the tile's index math for a machine without ``nvcc``: copies
-``instant_distance_tpu_torch/csrc`` into ``build/cuda_emu/``, replaces the
-inline PTX of ``csrc/mma_tile.cuh`` (cp.async, ldmatrix, mma.sync) by C++
-that implements the PTX ISA's fragment layouts, compiles each source with
-g++ against ``tools/cuda_emu/cuda_runtime.h`` (one thread per CUDA thread,
-barriers for ``__syncthreads`` and the warp-collective operations), and
-holds every result bit for bit against the plain torch versions of
-``ops/scan_kernel.py`` at small shapes that reach the tile's edges.  It
-says nothing about what ``nvcc`` accepts or how fast the card runs; the
-kernels' tests on the card are ``tests/test_torch_gpu.py``.
+A check of the kernels' index math for a machine without ``nvcc``:
+copies ``instant_distance_tpu_torch/csrc`` into ``build/cuda_emu/``,
+replaces the inline PTX of ``csrc/mma_tile.cuh`` (cp.async, ldmatrix,
+mma.sync) by C++ that implements the PTX ISA's fragment layouts, and
+K4's cp.async copies by plain copies, compiles each source with g++
+against ``tools/cuda_emu/cuda_runtime.h`` (one thread per CUDA thread,
+barriers for ``__syncthreads`` and the warp collectives: shuffles,
+ballots, ldmatrix, mma.sync), and holds every result bit for bit against
+the plain torch versions of ``ops/scan_kernel.py`` and
+``ops/walk_kernel.py`` at small shapes that reach the kernels' edges.
+It says nothing about what ``nvcc`` accepts or how fast the card runs;
+the kernels' tests on the card are ``tests/test_torch_gpu.py``.
 
-    python tools/cuda_emu/run.py [k1|k2|k3|k5 ...]
+    python tools/cuda_emu/run.py [k1|k2|k3|k4|k5 ...]
 
 Each block runs 256 OS threads, so keep the shapes small (a few blocks).
 """
@@ -33,7 +35,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 sys.path.insert(0, ROOT)
 
+from instant_distance_tpu_torch.ops import packed as tpk  # noqa: E402
 from instant_distance_tpu_torch.ops import scan_kernel as tsk  # noqa: E402
+from instant_distance_tpu_torch.ops import walk_kernel as twk  # noqa: E402
 
 CSRC = os.path.join(ROOT, "instant_distance_tpu_torch", "csrc")
 OUT = os.path.join(ROOT, "build", "cuda_emu")
@@ -91,6 +95,16 @@ inline void mma_s8(int32_t (&acc)[4], const uint32_t (&a)[4],
 }
 '''
 
+#: C++ for K4's copies into shared memory (csrc/walk_kernel.cu, between
+#: the two "copies" comments): synchronous, so staged bytes are there at
+#: once.
+WALK_COPIES = r'''
+inline void cp_async16(void* dst, const void* src) { memcpy(dst, src, 16); }
+inline void cp_async4(void* dst, const void* src) { memcpy(dst, src, 4); }
+inline void cp_async_commit() {}
+template <int n> inline void cp_async_wait() {}
+'''
+
 
 def build() -> dict:
     """Emulation libraries {source stem: ctypes library}."""
@@ -102,6 +116,10 @@ def build() -> dict:
             a = s.index("__device__ __forceinline__ uint32_t smem_addr")
             b = s.index("// Swizzle of the 16-byte chunks")
             s = s[:a] + PTX_HELPERS + s[b:]
+        if name == "walk_kernel.cu":
+            a = s.index("// -- copies into shared memory")
+            b = s.index("// -- end of the copies")
+            s = s[:a] + WALK_COPIES + s[b:]
         if name.endswith(".cu"):
             s = s.replace("extern __shared__ __align__(16) uint8_t smem[];",
                           "uint8_t* smem = g_emu->smem;")
@@ -110,7 +128,7 @@ def build() -> dict:
         with open(os.path.join(OUT, name), "w") as f:
             f.write(s)
     libs = {}
-    for stem in ("scan_kernel", "bucket_kernel"):
+    for stem in ("scan_kernel", "bucket_kernel", "walk_kernel"):
         so = os.path.join(OUT, f"{stem}.so")
         subprocess.run(["g++", "-x", "c++", "-std=c++20", "-O1",
                         "-ffp-contract=off", "-fPIC", "-shared", "-pthread",
@@ -125,6 +143,8 @@ def build() -> dict:
     bk.idt_bucket_scan_int.argtypes = [P] * 5 + [I] * 5 + [P]
     bk.idt_topt_scan.argtypes = [P] * 7 + [I] * 7 + [P]
     bk.idt_topt_max_topt.argtypes = [I, I]
+    libs["walk_kernel"].idt_walk_search.argtypes = [P] * 8 + [I] * 7 + [P]
+    libs["walk_kernel"].idt_walk_smem.argtypes = [I] * 5
     return libs
 
 
@@ -327,11 +347,80 @@ def check_k5(lib) -> None:
                 f"({time.perf_counter() - t0:.1f} s)")
 
 
+#: K4: every (D, K, ef, expand) of these on a random valid graph of
+#: K4_N nodes, a batch of three queries: a seeded beam, the same beam in
+#: a shuffled slot order (the kernel ranks the caller's beam once) and an
+#: all-(inf, -1) beam.  ef 50 runs the "ties" data (every odd point a
+#: copy of the even one before it: equal distances between pids); ef 12
+#: stages at most K4_SMALL_STAGE bytes of codes at once, so that rows
+#: pass the staging buffer (whole-row chunks, or 32 rows times a slice of
+#: D at D = 300).
+K4_DIMS, K4_KS, K4_EFS = (16, 30, 128, 300), (8, 64), (12, 50, 256)
+K4_N, K4_SEEDS, K4_SMALL_STAGE = 400, 64, 4096
+#: More K4 cases: (D, K, ef, expand, stage bytes, variant).  Odd row
+#: sizes take 4-byte cp.async (ids) and plain loads (codes), as do
+#: misaligned codes; the largest pool, 4096, takes the block-wide sort.
+K4_EXTRA = ((33, 5, 16, 2, 40960, ""), (18, 6, 20, 1, 40960, ""),
+            (64, 16, 24, 2, 40960, "misaligned"),
+            (20, 2048, 40, 2, 8192, ""))
+
+
+def _walk_operands(d, k, ef, variant):
+    rng = np.random.default_rng(d * 1000 + k * 10 + ef)
+    n = max(K4_N, 2 * k + 2)
+    pts = rng.standard_normal((n, d)).astype(np.float32)
+    if variant == "ties":
+        pts[1::2] = pts[0::2]
+    adj = np.full((n, k), -1, np.int32)
+    for i in range(n):
+        deg = rng.integers(1, k + 1)
+        others = np.setdiff1d(rng.permutation(n)[:deg + 1], [i])[:deg]
+        adj[i, :len(others)] = rng.permutation(others)
+    ids, codes, scales = tpk.pack_layer(
+        torch.from_numpy(adj), *tpk.quantize_points(torch.from_numpy(pts)))
+    queries = torch.from_numpy(rng.standard_normal((3, d)).astype(np.float32))
+    if variant == "ties":
+        queries[1] = torch.from_numpy(pts[8])
+    bd0, bp0 = tpk.seeded_beam(queries, torch.from_numpy(
+        pts[:K4_SEEDS]).to(torch.bfloat16), ef)
+    perm = torch.from_numpy(rng.permutation(ef))
+    bd0[1], bp0[1] = bd0[1][perm], bp0[1][perm]
+    bd0[2], bp0[2] = torch.inf, -1
+    if variant == "misaligned":
+        codes = _misaligned(codes)
+    return queries, bd0, bp0, ids, codes, scales
+
+
+def check_k4(lib) -> None:
+    cases = [(d, k, ef, expand,
+              K4_SMALL_STAGE if ef == 12 else twk.STAGE_BYTES,
+              "ties" if ef == 50 else "")
+             for d in K4_DIMS for k in K4_KS for ef in K4_EFS
+             for expand in twk.EXPANDS] + list(K4_EXTRA)
+    for d, k, ef, expand, stage, variant in cases:
+        ops = _walk_operands(d, k, ef, variant)
+        t0 = time.perf_counter()
+        b = ops[0].shape[0]
+        bd = torch.zeros((b, ef))
+        bp = torch.zeros((b, ef), dtype=torch.int32)
+        max_iters = 8 * ef + 16
+        assert lib.idt_walk_search(*(_ptr(t) for t in ops), _ptr(bd),
+                                   _ptr(bp), b, d, k, ef, expand, max_iters,
+                                   stage, None) == 0
+        want = twk.walk_search_plain(*ops, expand=expand, ef=ef,
+                                     max_iters=max_iters)
+        _same((bd, bp), want,
+              f"K4 D={d} K={k} ef={ef} expand={expand} stage={stage} "
+              f"{variant} ({time.perf_counter() - t0:.1f} s, "
+              f"{lib.idt_walk_smem(d, k, ef, expand, stage)} B)")
+
+
 def main(argv=None) -> int:
-    which = argv or sys.argv[1:] or ["k1", "k2", "k3", "k5"]
+    which = argv or sys.argv[1:] or ["k1", "k2", "k3", "k4", "k5"]
     libs = build()
     checks = {"k1": (check_k1, "scan_kernel"), "k2": (check_k2, "bucket_kernel"),
               "k3": (check_k3, "bucket_kernel"),
+              "k4": (check_k4, "walk_kernel"),
               "k5": (check_k5, "bucket_kernel")}
     for name in which:
         check, stem = checks[name]
