@@ -47,9 +47,30 @@ against its plain torch version:
                 and one search through the Search iterator;
   9. packed300 — PackedHnsw.from_index of that map (D = 300 unpadded),
                 search_batch_kernel (K4) and search_batch_values;
- 10. launches — every kernel ran inside its paths (each path is driven
+ 10. add      — on phase 4's data: Hnsw.build of the first 868,928
+                points, then index.add of the other 131,072 in four calls
+                (K1), search_batch(ef=50) against the truth over all 1M,
+                PackedHnsw.from_index of the grown index (K4), and a
+                ScanIndex grown by add whose bucket_pack results must
+                equal phase 4's one-shot ScanIndex bit for bit (K1);
+ 11. beam     — the first 131,072 rows of that data built with a torch
+                callable metric (beam-mode waves, no scan kernel), and
+                32,768 rows with Heuristic(extend_candidates=True) (K1);
+ 12. checkpoint — the first 262,144 rows with an exact prefix of
+                131,072 (streamed-scan waves, then K1): build A twice
+                (the build is deterministic), build B with a checkpoint
+                every 8 waves stopped halfway by its progress callback,
+                build C resumed from B's file: C equals A bit for bit and
+                the file is gone;
+ 13. sampled  — DEEP-shaped data (1M x 96), construct_sample_cols=262,144
+                with the split flag on (the repair in the commit), K1 on
+                the capped columns;
+ 14. launches — every kernel ran inside its paths (each path is driven
                 with the launch counts set to 0 just before it and read
                 just after).
+
+Every new phase prints its wall time, build time, pts/s and peak memory
+and gates recall@10 like the others.
 
 Every phase prints a line; any failure raises and the exit code is not
 0.  The last two lines are the kernel record and the device record, one
@@ -90,6 +111,16 @@ PEAK_INT8_OPS, PEAK_F32_OPS, PEAK_BYTES = 1979e12, 67e12, 3.35e12
 PACKED_KW = dict(k=K, ef=50, entry_seeds=8192, expand=2)
 #: K4's random-graph cases: nodes, neighbours per row, batch, ef, seeds.
 WALK_N, WALK_K, WALK_B, WALK_EF, WALK_S = 65536, 64, 1024, 50, 4096
+#: The add path: points built first, then added in ADD_CALLS equal calls.
+ADD_BASE, ADD_CALLS = N_POINTS - 131_072, 4
+#: The beam path's callable build and extend_candidates build (rows of
+#: phase 4's data, cut from 1M for the smoke's time).
+BEAM_N, EXTEND_N = 131_072, 32_768
+#: The checkpoint path: rows, exact prefix, waves between saves.
+CKPT_N, CKPT_PREFIX, CKPT_EVERY = 262_144, 131_072, 8
+#: The sampled path (DEEP-shaped, docs/performance.md:665-790 cut from 10M
+#: points to 1M and from a 2^22 cap to 2^18, for the smoke's time).
+DEEP_N, DEEP_DIM, SAMPLE_COLS = 1_000_000, 96, 262_144
 
 #: Kernels whose product runs on the int8 tensor cores (K1 with K6; K2
 #: and K3, one template; K5): the build phase fails if their machine code
@@ -587,14 +618,15 @@ def _scan(torch, launches, path, index, queries, gt, kw):
         _check_results(torch, d, i, queries.shape[0], path)
         recs = _recall_blocks(i[:N_BLOCKS * BLOCK].cpu(), gt)
         t = _wall_s(torch, lambda: index.search_batch(queries, **kw))
-        return recs, t
+        return recs, t, (d, i)
 
-    recs, t = launches.run(path, run)
+    recs, t, result = launches.run(path, run)
     _phase(path, f"{kw}: {queries.shape[0] / t:.1f} qps "
            f"({t * 1e3:.2f} ms/batch of {queries.shape[0]}), recall@10 "
            f"blocks {[round(r, 4) for r in recs]}, launches "
            f"{ {k: v for k, v in launches.paths[path].items() if v} }")
     _check_recall(recs, path)
+    return result
 
 
 def _build_path(torch, launches, path, build):
@@ -722,6 +754,247 @@ def _packed_path(torch, idt, launches, path, index, queries, *,
     return packed, record
 
 
+# ---------------------------------------------------------------------------
+# phases 10-13: construction beyond the default build, and add
+# ---------------------------------------------------------------------------
+
+def _peak_gib(torch) -> float:
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def _timed(torch, fn):
+    """(fn(), host seconds, peak GiB) with the device synced around it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, _peak_gib(torch)
+
+
+def _report_build(torch, idt, launches, path, index, queries, n, build_s,
+                  peak):
+    """search_batch(ef=50) of a built index against BruteForce over its
+    points; prints the build and search lines and gates recall."""
+    recs, t = _search_path(torch, idt, launches, path, index, queries)
+    _phase(path, f"build {n}x{index.points.shape[1]}: {build_s:.1f} s "
+           f"({n / build_s:.1f} pts/s), peak memory {peak:.2f} GiB, "
+           f"reverse drops {index.reverse_drops}; search ef=50 batch "
+           f"{BLOCK}: {BLOCK / t:.1f} qps, recall@10 blocks "
+           f"{[round(r, 4) for r in recs]}")
+    _check_recall(recs, path)
+    return recs
+
+
+def phase_add(torch, idt, launches, pts, queries, gt, one_shot, hnsw_recs):
+    """Phase 10: grow an index and a ScanIndex by add (K1), serve the
+    grown index packed (K4)."""
+    cfg = idt.Config(seed=3, m=32, wave_size=4096, ef_search=50)
+    t_wall = time.perf_counter()
+    (index, ids), build_s, peak = _build_path(
+        torch, launches, "add base",
+        lambda progress: idt.Hnsw.build(pts[:ADD_BASE], cfg,
+                                        progress=progress))
+    launches.need("add base", ["fused_scan_bucket_int_packed"])
+    step = (N_POINTS - ADD_BASE) // ADD_CALLS
+
+    def grow():
+        return np.concatenate([
+            index.add(pts[ADD_BASE + c * step:ADD_BASE + (c + 1) * step])
+            for c in range(ADD_CALLS)])
+
+    pids, add_s, add_peak = _timed(torch, lambda: launches.run("add", grow))
+    launches.need("add", ["fused_scan_bucket_int_packed"])
+    if not np.array_equal(pids, np.arange(ADD_BASE, N_POINTS)):
+        raise AssertionError("add: the new pids do not count up from "
+                             f"{ADD_BASE}")
+    if index.reverse_drops:
+        raise AssertionError(f"add: {index.reverse_drops} reverse drops")
+    # the truth is in row numbers: base rows map through the build's ids,
+    # added rows to their new pids
+    truth = np.concatenate([ids, pids])[gt.numpy()]
+    nq = N_BLOCKS * BLOCK
+
+    def search():
+        d, p = index.search_batch(queries[:nq], k=K, ef=50)
+        _check_results(torch, d, p, nq, "add")
+        return _recall_blocks(p.cpu(), truth), _wall_s(
+            torch, lambda: index.search_batch(queries[:BLOCK], k=K, ef=50))
+
+    recs, t = launches.run("add search", search)
+    _phase("add", f"base build {ADD_BASE}x{DIM}: {build_s:.1f} s "
+           f"({ADD_BASE / build_s:.1f} pts/s), peak memory {peak:.2f} GiB; "
+           f"add {N_POINTS - ADD_BASE} in {ADD_CALLS} calls: {add_s:.2f} s "
+           f"({(N_POINTS - ADD_BASE) / add_s:.1f} pts/s), peak memory "
+           f"{add_peak:.2f} GiB, reverse drops 0; search ef=50 batch "
+           f"{BLOCK}: {BLOCK / t:.1f} qps, recall@10 blocks "
+           f"{[round(r, 4) for r in recs]} (one-shot hnsw: "
+           f"{[round(r, 4) for r in hnsw_recs]}); launches "
+           f"{ {k: v for k, v in launches.paths['add'].items() if v} }")
+    _check_recall(recs, "add")
+    packed, _ = _packed_path(torch, idt, launches, "add packed", index,
+                             queries, plain_route=False)
+    del packed, index
+
+    def grown_scan():
+        scan = idt.ScanIndex(pts[:ADD_BASE])
+        scan.add(pts[ADD_BASE:])
+        return scan.search_batch(queries, **SCAN_KW)
+
+    (d, i), scan_s, scan_peak = _timed(
+        torch, lambda: launches.run("add scan", grown_scan))
+    launches.need("add scan", ["fused_scan_bucket_int_packed"])
+    if not (torch.equal(d, one_shot[0]) and torch.equal(i, one_shot[1])):
+        raise AssertionError("add scan: the grown ScanIndex's results "
+                             "differ from the one-shot ScanIndex's")
+    _phase("add", f"ScanIndex({ADD_BASE}).add({N_POINTS - ADD_BASE}) then "
+           f"bucket_pack batch {queries.shape[0]}: {scan_s:.2f} s, peak "
+           f"memory {scan_peak:.2f} GiB; (d, i) equal to the one-shot "
+           f"ScanIndex's bit for bit; wall {time.perf_counter() - t_wall:.1f} "
+           "s")
+    torch.cuda.empty_cache()
+
+
+def phase_beam(torch, idt, launches, pts, queries):
+    """Phase 11: a callable-metric build (beam waves, no kernel) and an
+    extend_candidates build (K1)."""
+    cfg = idt.Config(seed=3, m=32, wave_size=4096, ef_search=50,
+                     metric=lambda a, b: ((a - b) ** 2).sum())
+    t_wall = time.perf_counter()
+    (index, _), build_s, peak = _build_path(
+        torch, launches, "beam",
+        lambda progress: idt.Hnsw.build(pts[:BEAM_N], cfg,
+                                        progress=progress))
+    launches.need("beam", [], absent=list(KERNELS))
+    _report_build(torch, idt, launches, "beam", index, queries, BEAM_N,
+                  build_s, peak)
+    del index
+    cfg = idt.Config(seed=3, m=32, wave_size=4096, ef_search=50,
+                     heuristic=idt.Heuristic(extend_candidates=True))
+    (index, _), build_s, peak = _build_path(
+        torch, launches, "beam extend",
+        lambda progress: idt.Hnsw.build(pts[:EXTEND_N], cfg,
+                                        progress=progress))
+    launches.need("beam extend", ["fused_scan_bucket_int_packed"])
+    _report_build(torch, idt, launches, "beam extend", index, queries,
+                  EXTEND_N, build_s, peak)
+    _phase("beam", f"wall {time.perf_counter() - t_wall:.1f} s")
+    del index
+    torch.cuda.empty_cache()
+
+
+class _Stop(RuntimeError):
+    """Raised from a build's progress callback to stop it."""
+
+
+def _same_graph(torch, a, b) -> bool:
+    return (torch.equal(a.zero, b.zero) and len(a.layers) == len(b.layers)
+            and all(torch.equal(x, y) for x, y in zip(a.layers, b.layers)))
+
+
+def phase_checkpoint(torch, idt, launches, pts, queries):
+    """Phase 12: builds A, A again, B stopped halfway with a checkpoint,
+    C resumed from it; C must equal A bit for bit."""
+    from instant_distance_tpu_torch.ops import construct
+
+    cfg = idt.Config(seed=3, m=32, wave_size=4096, ef_search=50,
+                     construct_exact_prefix=CKPT_PREFIX)
+    sub = pts[:CKPT_N]
+    t_wall = time.perf_counter()
+    (a, a_ids), build_s, peak = _build_path(
+        torch, launches, "checkpoint A",
+        lambda progress: idt.Hnsw.build(sub, cfg, progress=progress))
+    launches.need("checkpoint A", ["fused_scan_bucket_int_packed"])
+    (a2, a2_ids), _, _ = _build_path(
+        torch, launches, "checkpoint A again",
+        lambda progress: idt.Hnsw.build(sub, cfg, progress=progress))
+    if not (np.array_equal(a_ids, a2_ids) and _same_graph(torch, a, a2)):
+        raise AssertionError("checkpoint: two builds of A differ (the "
+                             "build is not deterministic)")
+    del a2
+
+    def stop(done, total, phase):
+        if done >= total // 2:
+            raise _Stop(done)
+
+    # each save's seconds, from a timing wrapper around the build's save
+    saves, save = [], construct._save_ckpt
+
+    def timed_save(*args):
+        t0 = time.perf_counter()
+        save(*args)
+        saves.append(time.perf_counter() - t0)
+
+    construct._save_ckpt = timed_save
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            fname = os.path.join(tmp, "build.ckpt.npz")
+            t0 = time.perf_counter()
+            try:
+                launches.run("checkpoint B", lambda: idt.Hnsw.build(
+                    sub, cfg, progress=stop, checkpoint=fname,
+                    checkpoint_every=CKPT_EVERY))
+                raise AssertionError("checkpoint: build B was not stopped")
+            except _Stop:
+                pass
+            b_s, b_saves = time.perf_counter() - t0, len(saves)
+            size_mb = os.path.getsize(fname) / 1e6
+            (c, c_ids), c_s, c_peak = _build_path(
+                torch, launches, "checkpoint C",
+                lambda progress: idt.Hnsw.build(
+                    sub, cfg, progress=progress, checkpoint=fname,
+                    checkpoint_every=CKPT_EVERY))
+            left = os.path.exists(fname)
+    finally:
+        construct._save_ckpt = save
+    launches.need("checkpoint C", ["fused_scan_bucket_int_packed"])
+    if left:
+        raise AssertionError("checkpoint: the file outlived the build")
+    if not (np.array_equal(a_ids, c_ids) and _same_graph(torch, a, c)):
+        raise AssertionError("checkpoint: resumed build C differs from A")
+    _phase("checkpoint", f"A {build_s:.1f} s ({CKPT_N / build_s:.1f} pts/s, "
+           f"peak {peak:.2f} GiB), A again identical; B stopped at half in "
+           f"{b_s:.1f} s; file {size_mb:.1f} MB; saves every {CKPT_EVERY} "
+           f"waves, seconds each: B "
+           f"{[round(x, 3) for x in saves[:b_saves]]}, C "
+           f"{[round(x, 3) for x in saves[b_saves:]]}; C resumed in "
+           f"{c_s:.1f} s (peak {c_peak:.2f} GiB): ids, zero layer and "
+           f"{len(c.layers)} upper layers equal A's bit for bit; file "
+           "removed")
+    _report_build(torch, idt, launches, "checkpoint", c, queries, CKPT_N,
+                  build_s, peak)
+    _phase("checkpoint", f"wall {time.perf_counter() - t_wall:.1f} s")
+    del a, c
+    torch.cuda.empty_cache()
+
+
+def phase_sampled(torch, idt, launches, dev):
+    """Phase 13: the sampled build at DEEP's width (K1 on the capped
+    columns, the repair in the commit)."""
+    from instant_distance_tpu_torch.utils.datasets import synthetic_clustered
+
+    t0 = time.perf_counter()
+    data = synthetic_clustered(DEEP_N + N_QUERIES, DEEP_DIM,
+                               n_clusters=10000, seed=9)
+    pts = torch.from_numpy(data[:DEEP_N]).to(dev)
+    queries = torch.from_numpy(data[DEEP_N:]).to(dev)
+    del data
+    _phase("data", f"{DEEP_N + N_QUERIES}x{DEEP_DIM} clustered, "
+           f"{time.perf_counter() - t0:.1f} s")
+    cfg = idt.Config(seed=9, m=32, wave_size=4096, ef_search=50,
+                     construct_sample_cols=SAMPLE_COLS,
+                     construct_split=True)
+    (index, _), build_s, peak = _build_path(
+        torch, launches, "sampled",
+        lambda progress: idt.Hnsw.build(pts, cfg, progress=progress))
+    launches.need("sampled", ["fused_scan_bucket_int_packed"])
+    _report_build(torch, idt, launches, "sampled", index, queries, DEEP_N,
+                  build_s, peak)
+    _phase("sampled", f"wall {time.perf_counter() - t0:.1f} s")
+    del index, pts, queries
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--build-n", type=int, default=N_POINTS,
@@ -783,7 +1056,7 @@ def main(argv=None) -> int:
            f"{time.perf_counter() - t0:.1f} s")
     gt = idt.BruteForce(pts).search_batch(queries[:nq], K)[1].cpu()
     scan = idt.ScanIndex(pts)
-    _scan(torch, launches, "scan", scan, queries, gt, SCAN_KW)
+    one_shot = _scan(torch, launches, "scan", scan, queries, gt, SCAN_KW)
     launches.need("scan", ["fused_scan_bucket_int_packed"])
     del scan
     _attribution(torch, tsk, launches, pts, queries)
@@ -796,6 +1069,7 @@ def main(argv=None) -> int:
         lambda progress: idt.Hnsw.build(pts[:bn], cfg, progress=progress))
     launches.need("hnsw", ["fused_scan_bucket_int_packed"])
     recs, t = _search_path(torch, idt, launches, "hnsw", index, queries)
+    hnsw_recs = recs
     _phase("hnsw", f"build {bn}x{DIM} m=32 wave 4096: {build_s:.1f} s "
            f"({bn / build_s:.1f} pts/s), peak memory {peak:.2f} GiB, "
            f"reverse drops {index.reverse_drops}; search ef=50 batch {BLOCK}: "
@@ -822,7 +1096,15 @@ def main(argv=None) -> int:
     del index
     packed, records["walk_search"] = _packed_path(
         torch, idt, launches, "packed", served, queries, plain_route=True)
-    del packed, served, pts, queries
+    del packed, served
+    torch.cuda.empty_cache()
+
+    # -- 10-12. add, beam and checkpoint on that data ----------------------
+    phase_add(torch, idt, launches, pts, queries, gt, one_shot, hnsw_recs)
+    del one_shot
+    phase_beam(torch, idt, launches, pts, queries)
+    phase_checkpoint(torch, idt, launches, pts, queries)
+    del pts, queries
     torch.cuda.empty_cache()
 
     # -- 7. ScanIndex at 300-d: bucket_pack -> K3, cosine bucket / topt ----
@@ -881,9 +1163,13 @@ def main(argv=None) -> int:
     if vals != [[index.values[i] for i in row] for row in p.cpu().tolist()]:
         raise AssertionError("packed300: search_batch_values lost values")
     _phase("packed300", f"search_batch_values -> {vals[0]}")
-    del packed
+    del packed, index, pts, queries
+    torch.cuda.empty_cache()
 
-    # -- 10. the paths ran through every kernel ----------------------------
+    # -- 13. the sampled build at DEEP's width ------------------------------
+    phase_sampled(torch, idt, launches, dev)
+
+    # -- 14. the paths ran through every kernel ----------------------------
     _phase("launches", "; ".join(
         f"{path}: { {k: v for k, v in c.items() if v} }"
         for path, c in launches.paths.items()))

@@ -9,10 +9,11 @@ a ``Config`` built from the same keywords in either package gives the
 same insertion order and layer assignment (tests/test_torch_build.py
 holds ``layer_sizes`` and ``resolve_seed`` to the originals).
 
-Fields that tune the JAX package's 16 GB TPU memory plan
-(``dispatch_sync_every``, ``construct_split``) are kept for a shared
-keyword surface and have no effect here; options the port does not run
-yet raise NotImplementedError where the build reads them.
+``dispatch_sync_every``, a throttle of the JAX package's TPU dispatch
+queue, is kept for a shared keyword surface and has no effect here.
+``construct_split`` runs no separate programs here either, but with
+``construct_sample_cols`` it decides where the build repairs the sampled
+scan's misses, exactly as in the JAX package (``ops/construct.py``).
 """
 
 from __future__ import annotations
@@ -110,7 +111,9 @@ class Config:
     construct_sample_cols: Optional[int] = None
     #: Hop expansion of sampled builds.
     construct_sample_hops: int = 16
-    #: JAX package only (split search/commit programs); no effect here.
+    #: Where a sampled build repairs its misses: True = after the
+    #: wave-peer merge (the JAX split programs' order), False = in the
+    #: search; None = the JAX package's memory estimate decides.
     construct_split: Optional[bool] = None
 
     def __post_init__(self) -> None:

@@ -4,10 +4,9 @@ of ``instant_distance_tpu/models/hnsw.py``).
 Same names, arguments and results as the JAX package, with torch tensors
 where it returns jax arrays.  An index lives on the device of the tensors
 it was built from (``index.device``); ``load`` takes a ``device``
-(default: the CUDA card).  What the port lacks still raises
-NotImplementedError naming its ROADMAP.md item: ``add`` (§1 item 2),
-``build(backend="native")`` (§1 item 3) and ``build(checkpoint=...)``
-(§1 item 1).
+(default: the CUDA card), and ``add`` puts new points on the index's
+device.  What the port lacks still raises NotImplementedError naming its
+ROADMAP.md item: ``build(backend="native")`` (§1 item 1).
 """
 
 from __future__ import annotations
@@ -20,7 +19,7 @@ import torch
 
 from ..config import Config
 from ..ops.beam import hnsw_search
-from ..ops.construct import BuiltGraph, build_graph
+from ..ops.construct import BuiltGraph, build_graph, extend_graph
 from ..ops.distance import resolve, torch_dtype
 from ..utils.convert import as_queries, as_tensor
 
@@ -91,19 +90,36 @@ class Search:
         return int((self._pids >= 0).sum())
 
 
-ADD_TODO = ("incremental add (extend_graph) is not ported yet "
-            "(ROADMAP.md §1 item 2)")
-
-
-def _check_build_options(backend: str, checkpoint) -> None:
+def _check_build_options(backend: str) -> None:
     """NotImplementedError for the build options the port lacks."""
     if backend == "native":
         raise NotImplementedError(
             'backend="native" needs the host engine, which is not ported '
-            "yet (ROADMAP.md §1 item 3)")
-    if checkpoint is not None:
-        raise NotImplementedError(
-            "build checkpoints are not ported yet (ROADMAP.md §1 item 1)")
+            "yet (ROADMAP.md §1 item 1)")
+
+
+def as_new_points(x, device, dim: int):
+    """Points to append, as a [A, dim] f32 tensor on ``device`` (one
+    point becomes a batch of one); ValueError on any other shape."""
+    pts = as_tensor(x, device, torch.float32)
+    if pts.dim() == 1:
+        pts = pts[None]
+    if pts.dim() != 2:
+        raise ValueError(f"new points must be a [N, D] 2-D array, got "
+                         f"shape {tuple(pts.shape)}")
+    if pts.shape[0] and pts.shape[1] != dim:
+        raise ValueError(f"new points dim {pts.shape[1]} != index dim "
+                         f"{dim}")
+    return pts
+
+
+def extended(alive, a: int):
+    """A new tombstone mask: ``alive`` (None stays None) and ``a`` alive
+    rows after it."""
+    if alive is None:
+        return None
+    return torch.cat([alive, torch.ones(a, dtype=torch.bool,
+                                        device=alive.device)])
 
 
 def tombstoned(alive, n: int, ids, device, what: str):
@@ -136,6 +152,9 @@ class Hnsw:
         #: Tombstone mask, bool [N]; None = nothing deleted.
         self._alive = (None if alive is None
                        else as_tensor(alive, self.device, torch.bool))
+        #: Neighbour-distance cache [N+1, m0] kept between adds (the
+        #: reverse-edge re-selection reads it).
+        self._adjd = None
         #: Reverse-edge additions lost to an explicit rev_rounds cap.
         self.reverse_drops = 0
 
@@ -148,23 +167,41 @@ class Hnsw:
         """Build the index; returns (index, ids) where ids maps the
         original point order to PointIds.  Builds on ``points``' device
         when it is a tensor, else on ``device`` (the CUDA card by
-        default; without one it raises).  ``backend="native"`` and
-        ``checkpoint`` are not ported yet and raise NotImplementedError;
-        ``checkpoint_every`` only applies with a checkpoint."""
+        default; without one it raises).  ``backend="native"`` is not
+        ported yet and raises NotImplementedError.  ``checkpoint``: a
+        path where the build saves its wave state every
+        ``checkpoint_every`` waves and from which a rerun resumes
+        (``ops/construct.build_graph``)."""
         config = config or Config()
         if len(np.shape(points)) != 2:
             raise ValueError(f"points must be a [N, D] 2-D array, got "
                              f"shape {tuple(np.shape(points))}")
-        _check_build_options(backend, checkpoint)
+        _check_build_options(backend)
         g: BuiltGraph = build_graph(points, config, progress=progress,
-                                    device=device)
+                                    device=device, checkpoint=checkpoint,
+                                    checkpoint_every=checkpoint_every)
         index = cls(g.points, g.zero, g.layers, config)
         index.reverse_drops = g.reverse_drops
         return index, g.ids
 
     def add(self, new_points, *, progress=None) -> np.ndarray:
-        """Append points: not ported yet (ROADMAP.md §1 item 2)."""
-        raise NotImplementedError(ADD_TODO)
+        """Append points (zero-layer wave insertion against the frozen
+        upper layers, ``ops/construct.extend_graph``); returns their new
+        PointIds.  The points, graph and mask become new tensors, so a
+        ``from_index`` child made before the add keeps its snapshot.
+        Rebuild once the index has grown by ~2x: the upper layers only
+        route."""
+        new_pts = as_new_points(new_points, self.device,
+                                self.points.shape[1])
+        n_old = len(self)
+        pts, zero, adjd, drops = extend_graph(
+            self.points, self.zero, self.layers, new_pts, self.config,
+            adjd=self._adjd, progress=progress)
+        self.points = pts.to(torch_dtype(self.config.dtype))
+        self.zero, self._adjd = zero, adjd
+        self.reverse_drops += drops
+        self._alive = extended(self._alive, new_pts.shape[0])
+        return np.arange(n_old, n_old + new_pts.shape[0], dtype=np.int32)
 
     def delete(self, pids) -> None:
         """Tombstone points: excluded from results, still routed through.
@@ -293,9 +330,15 @@ class HnswMap(Hnsw):
         return cls(hnsw.points, hnsw.zero, hnsw.layers, config, reordered)
 
     def add(self, new_points, values=None, *, progress=None) -> np.ndarray:
-        """Append (point, value) pairs: not ported yet (ROADMAP.md §1
-        item 2)."""
-        raise NotImplementedError(ADD_TODO)
+        """Append (point, value) pairs; returns the new PointIds (values
+        follow in pid order, in a new list)."""
+        new_pts = as_new_points(new_points, self.device,
+                                self.points.shape[1])
+        if values is None or len(values) != new_pts.shape[0]:
+            raise ValueError("values must match the number of new points")
+        pids = super().add(new_pts, progress=progress)
+        self.values = self.values + list(values)
+        return pids
 
     def search(self, point, search: Search) -> Iterator[Neighbor]:
         if len(self) == 0:

@@ -19,8 +19,9 @@ The search paths of the JAX package:
 Candidate selection is exact ``torch.topk`` where the JAX package used
 ``approx_min_k`` (exact on its CPU reference, approximate on the TPU).
 ``sel_group`` / ``sel_kgroup``, the grouped selection of
-``"bucket_pack"``, waits (ROADMAP.md §1 item 7), and so does ``add``
-(§1 item 2): both raise NotImplementedError.
+``"bucket_pack"``, waits (ROADMAP.md §1 item 5) and raises
+NotImplementedError.  ``add`` appends rows; the kernels' layouts are
+rebuilt from all rows at the next fused search.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ from ..ops.scan_kernel import (INT_RANK_LIMIT, PACK_OFFSET,
                                quantize_batch)
 from ..ops.sort import sort2
 from ..utils.convert import as_queries, as_tensor
-from .hnsw import ADD_TODO, tombstoned
+from .hnsw import as_new_points, extended, tombstoned
 
 _I32MAX = np.iinfo(np.int32).max
 _MAGIC = "instant-distance-tpu/scan/v1"
@@ -304,8 +305,37 @@ class ScanIndex:
                              self.norms))
 
     def add(self, new_points, values=None) -> np.ndarray:
-        """Append points: not ported yet (ROADMAP.md §1 item 2)."""
-        raise NotImplementedError(ADD_TODO)
+        """Append points (exact streaming: every row is scored, so the
+        append is the whole update).  New rows get their own per-point
+        codes and scales; the squared norms are recomputed over all rows,
+        and the fused kernels' layouts are rebuilt from all rows at the
+        next fused search, so a grown index scores exactly as one built
+        on all its rows.  Every array becomes a new tensor (a
+        ``from_index`` source is never written).  Returns the new ids,
+        following the existing rows."""
+        new_pts = as_new_points(new_points, self.device,
+                                self.points.shape[1])
+        a = new_pts.shape[0]
+        if self.values is not None:
+            if values is None or len(values) != a:
+                raise ValueError(
+                    "values must match the number of new points")
+        elif values is not None:
+            raise ValueError("this index carries no values")
+        n_old = len(self)
+        codes, scales = quantize_points(new_pts)
+        self.points = torch.cat([self.points, new_pts.to(self.points.dtype)])
+        self.codes = torch.cat([self.codes, codes])
+        self.scales = torch.cat([self.scales, scales])
+        deq = self.codes.float() * self.scales[:, None]
+        self.norms = (deq * deq).sum(1)
+        self._alive = extended(self._alive, a)
+        if self.values is not None:
+            self.values = self.values + list(values)
+        self._fused = {}
+        self._fused_int = {}
+        self.chunk = int(min(max(self.chunk, 1), len(self)))
+        return np.arange(n_old, n_old + a, dtype=np.int32)
 
     def delete(self, ids) -> None:
         """Tombstone ids: they are never scored into results again (a new
@@ -383,7 +413,7 @@ class ScanIndex:
                 if sel_group > 1 or sel_kgroup > 1:
                     raise NotImplementedError(
                         "sel_group/sel_kgroup grouped selection is not "
-                        "ported yet (ROADMAP.md §1 item 7)")
+                        "ported yet (ROADMAP.md §1 item 5)")
                 codes_t, norms_r, sg = self._fused_int_arrays(cb * inner)
                 d, i = _fused_int_packed_search(
                     queries, codes_t, norms_r, sg, self.points, eligible,

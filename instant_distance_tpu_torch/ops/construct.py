@@ -1,43 +1,72 @@
-"""Wave-based batched HNSW construction, scan-fused route (port of
-``instant_distance_tpu/ops/construct.py``).
+"""Wave-based batched HNSW construction and incremental insertion (port
+of ``instant_distance_tpu/ops/construct.py``).
 
 Points are inserted layer by layer in waves of doubling size (up to
 ``Config.wave_size``).  Each wave:
 
-1. finds its candidates with an int8 scan of the inserted prefix and an
-   exact f32 rerank (``search_select_core``): the packed-key kernel K1
-   for L2 metrics with D * 64 <= 16384, the bucket kernel K2 (per-point
-   scales, f32 epilogue) for dot/cosine and wider points
-   (``ops/scan_kernel.py``), then the exact top pool;
-2. merges each point's nearest same-wave peers (the batched stand-in for
+1. finds each point's candidate pool (``search_select_core``) in one of
+   the wave-search modes (``_resolve_search_mode``):
+
+   * ``"scan_fused"`` (named metrics): an int8 scan of the inserted
+     prefix, the packed-key kernel K1 for L2 metrics with D * 64 <=
+     16384, the bucket kernel K2 (per-point scales, f32 epilogue) for
+     dot/cosine and wider points (``ops/scan_kernel.py``), then the
+     exact top pool;
+   * ``"scan"``: the streamed per-point-scale scan of
+     ``models/scan.scan_candidates``; scan_fused builds run it for the
+     waves whose prefix is below ``construct_exact_prefix``;
+   * ``"beam"`` (callable metrics): a greedy descent through the upper
+     layers completed so far, then a batched beam search of the
+     pre-wave graph (``ops/beam.py``);
+
+   and reranks the pool with exact f32 distances;
+2. optionally merges the graph neighbours of the pool's best candidates
+   (``construct_hop_repair``; sampled builds, below);
+3. merges each point's nearest same-wave peers (the batched stand-in for
    sequential insertion order);
-3. selects forward neighbours (Alg. 3/4, ``ops/select.py``);
-4. commits forward rows and re-selects every reverse-edge target's row
+4. selects forward neighbours (Alg. 3/4, ``ops/select.py``, with
+   ``Heuristic.extend_candidates`` widening the pool first);
+5. commits forward rows and re-selects every reverse-edge target's row
    in nearest-first rounds of ``pend_cap`` additions (``commit_core``),
    lossless by default.
+
+``construct_sample_cols`` caps the scanned prefix at the first pids (a
+uniform sample: insertion order is a seeded shuffle).  Neighbours
+outside the sample come back through the graph: where the JAX package
+would run split search and commit programs (``construct_split``, or its
+8e9-byte estimate), the repair runs after the wave-peer merge, in the
+commit (``repair_commit_core``); otherwise in the search, with
+``max(construct_hop_repair, construct_sample_hops)`` hops.  The two
+place the repair differently, so they build different graphs.
+
+``build_graph(checkpoint=...)`` saves the wave state every
+``checkpoint_every`` waves in the JAX package's npz fields and resumes
+from a file whose key matches; ``extend_graph`` inserts new points at
+layer 0 against the frozen upper layers (``Hnsw.add``).
 
 Insertion order and layer assignment come from the JAX package's numpy
 code, verbatim, so a port build and a reference build with the same
 seed insert the same points in the same waves.  The adjacency is
 [N+1, m0] with row N a write sink for padded wave lanes, updated in
-place.
-
-Not ported yet (each raises NotImplementedError; ROADMAP.md §1 item 5):
-beam and streamed-scan wave search (and so callable metrics), the
-exact-prefix hybrid, sampled scans with hop repair,
-``extend_candidates``, checkpoints and ``extend_graph``.  The 16 GB-chip
-workarounds of the JAX build (split search/commit programs, lane-packed
-adjacency, ``dispatch_sync_every``, 4M-column scan chunks, 128-lane
-point padding) are left out: the H100 holds the whole wave state.
+place.  Left out, as workarounds for a 16 GB TPU: separate search and
+commit programs, the lane-packed adjacency, ``dispatch_sync_every``,
+the 4M-column scan chunks, 128-lane point padding and the environment
+knobs ``INSTANT_TPU_NO_SPLIT``, ``INSTANT_TPU_NO_PK`` and
+``INSTANT_TPU_FINAL_CKPT``.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Optional
 
 import numpy as np
 import torch
 
 from ..config import Config, layer_sizes, resolve_seed
 from ..utils.convert import default_device
+from .beam import beam_search_layer, greedy_descent
 from .distance import resolve, torch_dtype
 from .packed import quantize_points
 from .scan_kernel import (bucket_operands, bucket_queries, decode_keys,
@@ -63,6 +92,12 @@ _FUSED_PACK_LSUB = 64
 #: rows, so the size changes memory and launch count, never the graph;
 #: 65536 targets x (m0 + pend_cap)^2 pairwise entries fit an H100 easily.
 _REV_CHUNK = 1 << 16
+#: Hop-repair neighbours whose exact distances are gathered at once
+#: (columns of the [W, hops * m0] neighbour list), as in the JAX
+#: ``repair_commit_core``: values never depend on it.
+_HOP_CHUNK = 256
+#: Upper-layer greedy descent's step cap (the JAX ``_greedy_stacked``).
+_GREEDY_ITERS = 512
 
 
 def _use_pack(metric_name, d: int) -> bool:
@@ -92,9 +127,13 @@ def _resolve_search_mode(cfg, metric_name) -> str:
     return mode
 
 
-def _pool_of(cfg) -> int:
-    """Scan-mode candidate pool: ``construct_pool`` or 3 * ef_construction
-    (pool depth is nearly free for the scan; see the JAX ``_pool_of``)."""
+def _pool_of(cfg, search_mode: str) -> int:
+    """Candidate pool of a wave search: ``ef_construction`` verbatim for
+    beam (reference parity), ``construct_pool`` or 3 * ef_construction
+    for the scans (pool depth is nearly free there; see the JAX
+    ``_pool_of``)."""
+    if not search_mode.startswith("scan"):
+        return cfg.ef_construction
     return int(cfg.construct_pool or 3 * cfg.ef_construction)
 
 
@@ -123,20 +162,62 @@ def _bucket(w: int, cap: int) -> int:
     return min(b, cap) if b >= w else cap
 
 
-def _check_supported(cfg, search_mode: str, n: int) -> None:
-    todo = "is not ported yet (ROADMAP.md §1 item 5)"
-    if search_mode != "scan_fused":
-        raise NotImplementedError(
-            f"construct_mode resolving to {search_mode!r} {todo}; only the "
-            "scan_fused route runs")
-    if cfg.construct_exact_prefix:
-        raise NotImplementedError(f"construct_exact_prefix {todo}")
-    if cfg.construct_sample_cols is not None and cfg.construct_sample_cols < n:
-        raise NotImplementedError(f"construct_sample_cols {todo}")
-    if cfg.construct_hop_repair > 0:
-        raise NotImplementedError(f"construct_hop_repair {todo}")
-    if cfg.heuristic is not None and cfg.heuristic.extend_candidates:
-        raise NotImplementedError(f"Heuristic(extend_candidates=True) {todo}")
+@dataclasses.dataclass(frozen=True)
+class _Plan:
+    """A build's options, resolved once (``_plan_of``)."""
+
+    metric_name: object
+    search_mode: str
+    m: int
+    m0: int
+    heuristic: Optional[tuple]     # (extend_candidates, keep_pruned)
+    pend_cap: int
+    rev_rounds: int
+    pd_dtype: str
+    max_iter_factor: int
+    expand: int
+    efc_beam: int                  # _pool_of(cfg, "beam")
+    efc_scan: int                  # _pool_of(cfg, "scan")
+    exact_prefix: int
+    hop: int
+    sampling: bool
+    sample_cols: int
+    sample_hops: int
+    split: bool
+
+
+def _plan_of(cfg, n: int, d: int, allow_split: bool = True) -> _Plan:
+    """Resolve ``cfg`` for ``n`` points of dimension ``d``.  ``split`` is
+    where the JAX package would run separate search and commit programs
+    (``build_graph``, construct.py:1374-1382): only scan modes with no
+    hop repair and no ``extend_candidates``, when ``construct_split``
+    says so or, left None, when its memory estimate passes 8e9 bytes.
+    Incremental adds never split (``allow_split=False``)."""
+    metric_name = cfg.metric
+    search_mode = _resolve_search_mode(cfg, metric_name)
+    heur = (None if cfg.heuristic is None else
+            (cfg.heuristic.extend_candidates, cfg.heuristic.keep_pruned))
+    hop = int(cfg.construct_hop_repair)
+    pend_cap, rev_rounds = _rev_params(cfg, cfg.m0)
+    scan = search_mode.startswith("scan")
+    can_split = scan and hop == 0 and not (heur is not None and heur[0])
+    split = cfg.construct_split
+    if split is None:
+        dp_est = d + (-d) % 128
+        split = n * (17 * cfg.m0 + 8 * dp_est) > 8_000_000_000
+    sample_cols = cfg.construct_sample_cols
+    return _Plan(
+        metric_name=metric_name, search_mode=search_mode, m=cfg.m,
+        m0=cfg.m0, heuristic=heur, pend_cap=pend_cap, rev_rounds=rev_rounds,
+        pd_dtype=cfg.select_pd_dtype, max_iter_factor=cfg.max_iter_factor,
+        expand=cfg.construct_expand, efc_beam=_pool_of(cfg, "beam"),
+        efc_scan=_pool_of(cfg, "scan"),
+        exact_prefix=int(cfg.construct_exact_prefix or 0), hop=hop,
+        sampling=(sample_cols is not None and scan
+                  and int(sample_cols) < n),
+        sample_cols=int(sample_cols or 0),
+        sample_hops=int(cfg.construct_sample_hops),
+        split=allow_split and can_split and bool(split))
 
 
 def _quantize_for_scan(points, metric_name):
@@ -154,6 +235,49 @@ def _quantize_for_scan(points, metric_name):
                else metric_name)
     return bucket_operands(codes, scales, (deq * deq).sum(1), _FUSED_CB,
                            variant)
+
+
+def _flat_operands(points):
+    """Streamed-scan operands (the JAX ``_quantize_for_scan(fused=
+    False)``): per-point int8 codes [N, D], scales [N] and the
+    dequantized squared norms [N]."""
+    codes, scales = quantize_points(points)
+    deq = codes.float() * scales[:, None]
+    return codes, scales, (deq * deq).sum(1)
+
+
+def _scan_operands(points, plan: _Plan):
+    """``(main, flat)`` wave-search operands: ``main`` for the plan's
+    own mode (None for beam), ``flat`` the streamed-scan operands of the
+    first ``exact_prefix`` points that a scan_fused build hands to the
+    waves whose prefix is still below it (None without a prefix)."""
+    if not plan.search_mode.startswith("scan"):
+        return None, None
+    if plan.search_mode == "scan":
+        return _flat_operands(points), None
+    main = _quantize_for_scan(points, plan.metric_name)
+    flat = None
+    if plan.exact_prefix > 0:
+        flat = _flat_operands(points[:min(points.shape[0],
+                                          plan.exact_prefix)])
+    return main, flat
+
+
+def _cap_scan_ops(ops, plan: _Plan, d: int):
+    """The scan operands cut to the first ~``sample_cols`` pids, rounded
+    up to the kernel's point block (8192 for K1, 4096 for K2, 128 for
+    the streamed scan), as contiguous copies: the full-size operands
+    are not referenced any more."""
+    if plan.search_mode == "scan_fused":
+        mult = (_FUSED_PACK_CB if _use_pack(plan.metric_name, d)
+                else _FUSED_CB)
+        cap = min(-(-plan.sample_cols // mult) * mult, ops[0].shape[1])
+        c0, c1, c2 = ops
+        if c1.dim() > 0:                 # per-point scales [1, Npad]
+            c1 = c1[:, :cap].contiguous()
+        return c0[:, :cap].contiguous(), c1, c2[:, :cap].contiguous()
+    cap = min(-(-plan.sample_cols // 128) * 128, ops[0].shape[0])
+    return tuple(x[:cap].contiguous() for x in ops)
 
 
 # ---------------------------------------------------------------------------
@@ -230,8 +354,9 @@ def _pend_window(utgt, uid_s, rank, dist, src, valid, pend_cap: int,
 # ---------------------------------------------------------------------------
 
 def _dedup_sorted(cd, cp):
-    """Invalidate repeated pids in (dist, pid)-sorted rows: equal pids
-    carry equal distances, so they sit side by side."""
+    """Invalidate repeated pids in rows where equal pids sit side by side
+    (sorted by (dist, pid) or by pid: equal pids carry equal
+    distances)."""
     dup = torch.cat([torch.zeros_like(cp[:, :1], dtype=torch.bool),
                      (cp[:, 1:] == cp[:, :-1]) & (cp[:, 1:] >= 0)], dim=1)
     return torch.where(dup, torch.inf, cd), torch.where(dup, -1, cp)
@@ -269,33 +394,151 @@ def _scan_bucket(q, filled: int, codes_t, scales_r, norms_r, efc: int,
     return torch.where(torch.isfinite(md), oi.gather(1, nidx), -1)
 
 
-def search_select_core(wave_pids, filled: int, points, codes_t, scales,
-                       norms_r, *, metric_name, efc: int, m0: int,
-                       heuristic, pd_dtype="bfloat16"):
+def _scan_stream(q, filled: int, codes, scales, norms, efc: int,
+                 metric_name):
+    """Streamed-scan wave search (JAX construct.py:461-486): the exact
+    top-efc of the int8 scores of pids below ``filled``; ``codes`` may
+    cover only the exact prefix."""
+    from ..models.scan import scan_candidates
+
+    npts = codes.shape[0]
+    prefix = torch.arange(npts, device=q.device) < filled
+    _, cand_p = scan_candidates(
+        q, codes, scales, norms, prefix,
+        metric_name=(metric_name if isinstance(metric_name, str)
+                     else "sqeuclidean"),
+        ef=efc, chunk=min(1 << 17, npts))
+    return cand_p
+
+
+def _beam_candidates(q, points, adj, uppers, metric, *, m: int, efc: int,
+                     links: int, max_iter_factor: int, expand: int):
+    """Beam wave search (JAX construct.py:487-505): from pid 0, a greedy
+    descent through ``uppers`` (the snapshots completed so far, top
+    first), then an ``efc``-wide beam over the pre-wave adjacency's
+    first ``links`` columns.  Returns the sorted (dists, pids)."""
+    w = q.shape[0]
+    cur_p = torch.zeros(w, dtype=torch.int32, device=q.device)
+    cur_d = metric.gathered(q, points[cur_p[:, None].long()])[:, 0]
+    for up in uppers:
+        cur_d, cur_p = greedy_descent(q, up, points, metric, cur_d, cur_p,
+                                      links=min(m, up.shape[1]),
+                                      max_iters=_GREEDY_ITERS)
+    beam_d = torch.full((w, efc), torch.inf, device=q.device)
+    beam_p = torch.full((w, efc), -1, dtype=torch.int32, device=q.device)
+    beam_d[:, 0] = cur_d
+    beam_p[:, 0] = cur_p
+    beam_e = torch.zeros((w, efc), dtype=torch.bool, device=q.device)
+    return beam_search_layer(q, adj, points, metric, beam_d, beam_p, beam_e,
+                             links=links,
+                             max_iters=max_iter_factor * efc + 16,
+                             expand=expand)
+
+
+def _gathered_cols(metric, q, points, ids):
+    """Exact distances of ``q`` [W, D] to ``points[ids]`` [W, C] (inf for
+    -1), gathered ``_HOP_CHUNK`` columns at a time."""
+    parts = []
+    for cs in range(0, ids.shape[1], _HOP_CHUNK):
+        sub = ids[:, cs:cs + _HOP_CHUNK]
+        sd = metric.gathered(q, points[sub.clamp(min=0)])
+        parts.append(torch.where(sub >= 0, sd, torch.inf))
+    return torch.cat(parts, 1)
+
+
+def _merge_dedup_rerank(cand_d, cand_p, nd, nb, efc: int):
+    """Merge hop candidates (nd, nb) into the pool, dedup by pid, and
+    re-rank by (dist, pid); the first ``efc`` survive.  Equal pids carry
+    equal exact distances, so which copy survives is immaterial."""
+    cp = torch.cat([cand_p, nb], 1)
+    cd = torch.cat([cand_d, nd], 1)
+    cp, order = torch.sort(cp, dim=1, stable=True)
+    cd, cp = _dedup_sorted(cd.gather(1, order), cp)
+    cd, cp = sort2(cd, cp)
+    return cd[:, :efc], cp[:, :efc]
+
+
+def _hop_repair(q, cand_d, cand_p, adj, points, metric, hops: int):
+    """Merge the graph neighbours (whole adjacency rows) of the top-
+    ``hops`` candidates into the pool, with exact distances: it repairs
+    candidates a scan lost (stride-group collisions, or pids outside a
+    capped sample) and brings in the graph-local candidates a beam pool
+    would have held (the JAX ``_hop_repair``)."""
+    w, efc = cand_p.shape
+    h = min(hops, efc)
+    top_p = cand_p[:, :h]
+    nb = adj[top_p.clamp(min=0)]                              # [W, h, m0]
+    nb = torch.where((top_p >= 0)[:, :, None], nb, -1).reshape(w, -1)
+    nd = _gathered_cols(metric, q, points, nb)
+    return _merge_dedup_rerank(cand_d, cand_p, nd, nb, efc)
+
+
+def _select(q, cand_d, cand_p, wvalid, points, adj, metric, *, m0: int,
+            heuristic, links: int, efc: int, pd_dtype):
+    """Forward selection (lib.rs:465-473) of each wave point's pool;
+    padded lanes get -1/inf rows."""
+    if heuristic is None:
+        sel_d, sel_p = sel_ops.select_simple(cand_d, cand_p, m0)
+    else:
+        extend, keep_pruned = heuristic
+        if extend:
+            cand_d, cand_p = sel_ops.extend_candidates(
+                q, cand_d, cand_p, adj, points, metric, links=links,
+                cap=efc + m0)
+        with _span("build.select"):
+            sel_d, sel_p = sel_ops.select_heuristic(
+                q, cand_d, cand_p, points[cand_p.clamp(min=0)], metric, m0,
+                keep_pruned=keep_pruned, pd_dtype=torch_dtype(pd_dtype))
+    sel_p = torch.where(wvalid[:, None], sel_p, -1)
+    sel_d = torch.where(sel_p >= 0, sel_d, torch.inf)
+    return sel_d, sel_p
+
+
+def search_select_core(wave_pids, filled: int, points, ops, adj=None,
+                       uppers=(), *, metric_name, search_mode: str,
+                       efc: int, m: int, m0: int, links: int, heuristic,
+                       max_iter_factor: int = 8, expand: int = 1,
+                       hop_repair: int = 0, return_pool: bool = False,
+                       pd_dtype="bfloat16"):
     """Wave search + forward selection (lib.rs:447-473): each wave
     point's selected forward neighbours [W, m0], -1/inf for padded
     lanes.  ``filled`` is the first pid of the wave: pids below it are
-    the inserted prefix the scan may return.  ``codes_t, scales,
-    norms_r`` are :func:`_quantize_for_scan` of ``points``."""
+    the inserted prefix.  ``ops`` are the scan operands of
+    ``search_mode`` (:func:`_quantize_for_scan` for scan_fused,
+    :func:`_flat_operands` for scan, None for beam); ``adj`` [N+1, m0]
+    is read by beam, hop repair and ``extend_candidates``, ``uppers`` by
+    beam; ``links`` caps the columns of ``adj`` a walk or an extension
+    reads (m0 at layer 0, m above).  ``return_pool`` returns the
+    reranked, peer-merged pool instead of selecting
+    (:func:`repair_commit_core` selects)."""
     metric = resolve(metric_name)
     w = wave_pids.shape[0]
     wvalid = wave_pids >= 0
     q = points[wave_pids.clamp(min=0)]                          # [W, D]
 
-    # --- int8 scan of the prefix, exact top pool -----------------------
-    with _span("build.scan"):
-        if _use_pack(metric_name, q.shape[1]):
-            cand_p = _scan_pack(q, filled, codes_t, scales, norms_r, efc)
-        else:
-            cand_p = _scan_bucket(q, filled, codes_t, scales, norms_r, efc,
-                                  metric_name)
-    k_sel = cand_p.shape[1]
-    if k_sel < efc:
-        cand_p = torch.nn.functional.pad(cand_p, (0, efc - k_sel), value=-1)
-    # exact rerank: selection runs on true distances
-    cand_d = metric.gathered(q, points[cand_p.clamp(min=0)])
-    cand_d = torch.where(cand_p >= 0, cand_d, torch.inf)
-    cand_d, cand_p = sort2(cand_d, cand_p)
+    if search_mode.startswith("scan"):
+        with _span("build.scan"):
+            if search_mode == "scan":
+                cand_p = _scan_stream(q, filled, *ops, efc, metric_name)
+            elif _use_pack(metric_name, q.shape[1]):
+                cand_p = _scan_pack(q, filled, *ops, efc)
+            else:
+                cand_p = _scan_bucket(q, filled, *ops, efc, metric_name)
+        if search_mode == "scan_fused" and cand_p.shape[1] < efc:
+            cand_p = torch.nn.functional.pad(
+                cand_p, (0, efc - cand_p.shape[1]), value=-1)
+        # exact rerank: selection runs on true distances
+        cand_d = metric.gathered(q, points[cand_p.clamp(min=0)])
+        cand_d = torch.where(cand_p >= 0, cand_d, torch.inf)
+        cand_d, cand_p = sort2(cand_d, cand_p)
+        if hop_repair > 0:
+            cand_d, cand_p = _hop_repair(q, cand_d, cand_p, adj, points,
+                                         metric, hop_repair)
+    else:
+        with _span("build.beam"):
+            cand_d, cand_p = _beam_candidates(
+                q, points, adj, uppers, metric, m=m, efc=efc, links=links,
+                max_iter_factor=max_iter_factor, expand=expand)
 
     # --- intra-wave visibility: merge each point's nearest wave peers --
     if w > 1:
@@ -309,17 +552,36 @@ def search_select_core(wave_pids, filled: int, points, codes_t, scales,
                                torch.cat([cand_p, peer_p], 1))
         cand_d, cand_p = cand_d[:, :efc], cand_p[:, :efc]
 
-    # --- forward selection (lib.rs:465-473) ----------------------------
-    if heuristic is None:
-        sel_d, sel_p = sel_ops.select_simple(cand_d, cand_p, m0)
-    else:
-        with _span("build.select"):
-            sel_d, sel_p = sel_ops.select_heuristic(
-                q, cand_d, cand_p, points[cand_p.clamp(min=0)], metric, m0,
-                keep_pruned=heuristic[1], pd_dtype=torch_dtype(pd_dtype))
-    sel_p = torch.where(wvalid[:, None], sel_p, -1)
-    sel_d = torch.where(sel_p >= 0, sel_d, torch.inf)
-    return sel_d, sel_p
+    if return_pool:
+        cand_p = torch.where(wvalid[:, None], cand_p, -1)
+        return torch.where(cand_p >= 0, cand_d, torch.inf), cand_p
+    return _select(q, cand_d, cand_p, wvalid, points, adj, metric, m0=m0,
+                   heuristic=heuristic, links=links, efc=efc,
+                   pd_dtype=pd_dtype)
+
+
+def repair_commit_core(adj, adjd, wave_pids, points, cand_d, cand_p, *,
+                       metric_name, m0: int, heuristic, pend_cap: int,
+                       rev_rounds: int = 0, pd_dtype="bfloat16",
+                       hops: int = 16):
+    """Graph-hop pool repair, Alg. 3/4 selection and the commit of a
+    sampled wave (JAX construct.py:725-789): ``cand_d``/``cand_p`` are
+    the wave's peer-merged pool (``search_select_core(return_pool=
+    True)``); the neighbours of its top ``hops`` candidates in the
+    pre-wave graph join it before selection.  ``extend_candidates``
+    never runs here (such builds do not split)."""
+    metric = resolve(metric_name)
+    q = points[wave_pids.clamp(min=0)]
+    if min(hops, cand_p.shape[1]) > 0:
+        cand_d, cand_p = _hop_repair(q, cand_d, cand_p, adj, points, metric,
+                                     hops)
+    sel_d, sel_p = _select(
+        q, cand_d, cand_p, wave_pids >= 0, points, adj, metric, m0=m0,
+        heuristic=heuristic, links=m0, efc=cand_p.shape[1], pd_dtype=pd_dtype)
+    return commit_core(adj, adjd, wave_pids, points, sel_d, sel_p,
+                       metric_name=metric_name, m0=m0, heuristic=heuristic,
+                       pend_cap=pend_cap, rev_rounds=rev_rounds,
+                       pd_dtype=pd_dtype)
 
 
 def commit_core(adj, adjd, wave_pids, points, sel_d, sel_p, *,
@@ -399,6 +661,49 @@ def _warn_reverse_drops(n_dropped: int, pend_cap: int,
             "Config(rev_rounds=...) or lowering wave_size.", stacklevel=3)
 
 
+def _insert_wave(adj, adjd, wave, s: int, points, uppers, ops, flat_ops,
+                 plan: _Plan, links: int):
+    """Search, select and commit one wave of pids (``wave``, -1 padded,
+    lowest pid ``s`` in lane 0) in place; returns the reverse-edge
+    additions dropped, as a 0-d tensor."""
+    if (plan.search_mode == "scan_fused" and flat_ops is not None
+            and s < plan.exact_prefix):
+        mode_w, wops = "scan", flat_ops
+    else:
+        mode_w, wops = plan.search_mode, ops
+    scan = mode_w.startswith("scan")
+    common = dict(metric_name=plan.metric_name, m0=plan.m0,
+                  heuristic=plan.heuristic, pd_dtype=plan.pd_dtype)
+    search = dict(common, search_mode=mode_w,
+                  efc=plan.efc_scan if scan else plan.efc_beam,
+                  m=plan.m, links=links,
+                  max_iter_factor=plan.max_iter_factor, expand=plan.expand)
+    commit = dict(common, pend_cap=plan.pend_cap, rev_rounds=plan.rev_rounds)
+    if plan.split and plan.sampling and scan:
+        # the JAX split programs' order: pool first, repair in the commit
+        with _span("build.search_select"):
+            pool_d, pool_p = search_select_core(
+                wave, s, points, wops, adj, uppers, return_pool=True,
+                **search)
+        with _span("build.commit"):
+            return repair_commit_core(adj, adjd, wave, points, pool_d,
+                                      pool_p, hops=plan.sample_hops,
+                                      **commit)
+    hop = (max(plan.hop, plan.sample_hops) if plan.sampling and scan
+           else plan.hop)
+    with _span("build.search_select"):
+        sel_d, sel_p = search_select_core(wave, s, points, wops, adj, uppers,
+                                          hop_repair=hop, **search)
+    with _span("build.commit"):
+        return commit_core(adj, adjd, wave, points, sel_d, sel_p, **commit)
+
+
+def _wave_of(s: int, e: int, cap: int, dev):
+    wave = np.full(_bucket(e - s, cap), -1, np.int32)
+    wave[:e - s] = np.arange(s, e, dtype=np.int32)
+    return torch.as_tensor(wave, device=dev)
+
+
 class BuiltGraph:
     """Result of construction: the dense tensors an index is made of."""
 
@@ -413,8 +718,115 @@ class BuiltGraph:
         self.reverse_drops = reverse_drops
 
 
-def build_graph(points, config: Config, progress=None,
-                device=None) -> BuiltGraph:
+# ---------------------------------------------------------------------------
+# checkpoints
+# ---------------------------------------------------------------------------
+
+def _ckpt_key(cfg, plan: _Plan, n: int, d: int) -> str:
+    """The JAX package's v8 key (construct.py:1395-1406) with the
+    lane-packed adjacency's factor fixed at 1.  A sampled build's key
+    also carries the split flag, since the flag decides where the
+    repair runs and so the graph (the JAX key leaves it out)."""
+    key = (f"v8:{n}:{d}:{cfg.ef_construction}:{plan.m}:{cfg.ml}:"
+           f"{plan.heuristic}:{cfg.wave_size}:{plan.pend_cap}:"
+           f"{plan.rev_rounds}:{plan.max_iter_factor}:{plan.expand}:"
+           f"{plan.search_mode}:{plan.pd_dtype}:{plan.exact_prefix}:"
+           f"{plan.hop}:{_pool_of(cfg, plan.search_mode)}:1:"
+           f"{cfg.dist_cache_dtype}")
+    if plan.sampling:
+        key += (f":sc{plan.sample_cols}:sh{plan.sample_hops}"
+                f":split{int(plan.split)}")
+    return key
+
+
+def _pack_factor(m: int) -> int:
+    """Rows of m ids per 128-id row of the checkpoint's ``stacked``
+    field (the JAX package's lane-packed snapshot buffer)."""
+    return 128 // m if m <= 128 and 128 % m == 0 else 1
+
+
+def _load_ckpt(path: str, key: str, seed):
+    """The state saved at ``path`` when its key matches and its seed
+    matches ``seed`` (None adopts the stored one), else None."""
+    if not os.path.exists(path):
+        return None
+    with np.load(path, allow_pickle=False) as z:
+        if (str(z["key"]) != key or "seed" not in z.files
+                or (seed is not None and int(z["seed"]) != seed)):
+            return None
+        adjd = z["adjd"]
+        # bfloat16 is stored bit-viewed as uint16 with a dtype tag
+        want = (str(z["adjd_dtype"]) if "adjd_dtype" in z.files
+                else None)
+        return dict(seed=int(z["seed"]), adj=z["adj"], adjd=adjd,
+                    adjd_dtype=want, stacked=z["stacked"],
+                    offsets=z["offsets"].copy(), li=int(z["li"]),
+                    s=int(z["s"]),
+                    drops=int(z["drops"]) if "drops" in z.files else 0)
+
+
+def _adjd_from(arr, tag, dtype, dev):
+    """A saved distance cache back as a tensor of ``dtype``."""
+    if dtype == torch.bfloat16:
+        if tag not in (None, "bfloat16") or arr.dtype.itemsize != 2:
+            raise ValueError(f"checkpoint cache dtype {tag} is not bfloat16")
+        return torch.from_numpy(
+            np.ascontiguousarray(arr).view(np.int16)).view(
+                torch.bfloat16).to(dev)
+    return torch.from_numpy(np.asarray(arr)).to(dev, dtype)
+
+
+def _save_ckpt(path: str, key: str, seed: int, adj, adjd, layers, sizes,
+               m: int, li: int, s: int, drops) -> None:
+    """Write the wave state (adjacency, distance cache, the upper
+    snapshots so far, the last wave's coordinates) in the JAX package's
+    npz fields: ``stacked`` is its lane-packed snapshot buffer, each
+    snapshot at ``offsets[li]`` rows padded to the pack factor."""
+    pack = _pack_factor(m)
+
+    def pal(x):
+        return -(-x // pack) * pack
+
+    cap_rows = max(pack, sum(pal(c) for _, c in sizes[:-1]))
+    stacked = np.full((cap_rows, m), -1, np.int32)
+    offsets = np.zeros(16, np.int32)
+    write_off = 0
+    for i, snap in enumerate(layers):
+        stacked[write_off:write_off + snap.shape[0]] = snap.cpu().numpy()
+        offsets[i] = write_off
+        write_off += pal(snap.shape[0])
+    if adjd.dtype == torch.bfloat16:
+        adjd_np, tag = adjd.view(torch.int16).cpu().numpy().view(
+            np.uint16), "bfloat16"
+    else:
+        adjd_np = adjd.cpu().numpy()
+        tag = str(adjd_np.dtype)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, key=np.array(key), seed=np.uint64(seed),
+                 adj=adj.cpu().numpy(), adjd=adjd_np,
+                 adjd_dtype=np.array(tag),
+                 stacked=stacked.reshape(cap_rows // pack, m * pack),
+                 offsets=offsets, write_off=write_off, li=li, s=s,
+                 drops=int(drops))
+    os.replace(tmp, path)
+
+
+def _snapshots_from(state, ranges, m: int, dev):
+    """The upper snapshots of the layers a checkpoint completed (those
+    before its wave's layer), top first."""
+    flat = state["stacked"].reshape(-1, m)
+    out = []
+    for li in range(state["li"]):
+        end = ranges[li][2]
+        off = int(state["offsets"][li])
+        out.append(torch.from_numpy(flat[off:off + end].copy()).to(dev))
+    return out
+
+
+def build_graph(points, config: Config, progress=None, device=None,
+                checkpoint: Optional[str] = None,
+                checkpoint_every: int = 64) -> BuiltGraph:
     """Build the layered graph with batched insertion waves.
 
     Reproduces the reference's schedule (``Hnsw::new``, lib.rs:209-345):
@@ -423,9 +835,13 @@ def build_graph(points, config: Config, progress=None,
     post-layer truncated snapshots.  The build runs on ``points``'
     device (a tensor) or on ``device`` (numpy input; the CUDA card by
     default, and without one it raises).
+
+    ``checkpoint``: a path where the wave state is saved every
+    ``checkpoint_every`` waves, and resumed from when a build with the
+    same key finds it (an explicit seed must match too; a ``None`` seed
+    adopts the stored one).  The file is removed when the build ends.
     """
     cfg = config
-    metric_name = cfg.metric
     if isinstance(points, torch.Tensor):
         dev = points.device
         pts_in = points.float()
@@ -442,15 +858,13 @@ def build_graph(points, config: Config, progress=None,
                           [], np.zeros(0, np.int32), cfg)
     if n >= 2**31:
         raise ValueError("point count must fit in int32")
+    d = pts_in.shape[1]
+    plan = _plan_of(cfg, n, d)
 
-    search_mode = _resolve_search_mode(cfg, metric_name)
-    _check_supported(cfg, search_mode, n)
-    heur = (None if cfg.heuristic is None else
-            (cfg.heuristic.extend_candidates, cfg.heuristic.keep_pruned))
-    pend_cap, rev_rounds = _rev_params(cfg, m0)
-    efc = _pool_of(cfg)
-    pd_dtype = cfg.select_pd_dtype
-    seed = resolve_seed(cfg.seed)
+    key = _ckpt_key(cfg, plan, n, d)
+    state = (None if checkpoint is None
+             else _load_ckpt(checkpoint, key, cfg.seed))
+    seed = resolve_seed(cfg.seed if state is None else state["seed"])
 
     # random layer assignment via shuffle-sort (lib.rs:256-270), verbatim
     # from the JAX package so both insert the same points in the same waves
@@ -466,38 +880,132 @@ def build_graph(points, config: Config, progress=None,
 
     sizes = layer_sizes(n, cfg.ml, m)
     top = len(sizes) - 1
+    if top > 16:
+        raise ValueError("more than 16 upper layers (n too large for ml)")
     ranges = [(top - i, max(c - s, 1), c) for i, (s, c) in enumerate(sizes)]
 
-    scan_ops = _quantize_for_scan(pts, metric_name)
-    adj = torch.full((n + 1, m0), -1, dtype=torch.int32, device=dev)
-    adjd = torch.full((n + 1, m0), torch.inf, device=dev,
-                      dtype=torch_dtype(cfg.dist_cache_dtype))
-    drops = torch.zeros((), dtype=torch.int64, device=dev)
-    layers = []
-    done = 0
-    for layer, start, end in ranges:
+    ops, flat_ops = _scan_operands(pts, plan)
+    if plan.sampling:
+        ops = _cap_scan_ops(ops, plan, d)
+    cache_dtype = torch_dtype(cfg.dist_cache_dtype)
+    layers = []                                 # top first while building
+    resume = (-1, -1)
+    if state is None:
+        adj = torch.full((n + 1, m0), -1, dtype=torch.int32, device=dev)
+        adjd = torch.full((n + 1, m0), torch.inf, device=dev,
+                          dtype=cache_dtype)
+        drops = torch.zeros((), dtype=torch.int64, device=dev)
+    else:
+        adj = torch.from_numpy(state["adj"]).to(dev)
+        adjd = _adjd_from(state["adjd"], state["adjd_dtype"], cache_dtype,
+                          dev)
+        drops = torch.tensor(state["drops"], dtype=torch.int64, device=dev)
+        layers = _snapshots_from(state, ranges, m, dev)
+        resume = (state["li"], state["s"])
+    del state
+    done = waves = 0
+    for li, (layer, start, end) in enumerate(ranges):
+        links = m0 if layer == 0 else m
         for s, e in _wave_schedule(start, end, cfg.wave_size):
-            wave = np.full(_bucket(e - s, cfg.wave_size), -1, np.int32)
-            wave[:e - s] = np.arange(s, e, dtype=np.int32)
-            wave = torch.as_tensor(wave, device=dev)
-            with _span("build.search_select"):
-                sel_d, sel_p = search_select_core(
-                    wave, s, pts, *scan_ops,
-                    metric_name=metric_name, efc=efc, m0=m0,
-                    heuristic=heur, pd_dtype=pd_dtype)
-            with _span("build.commit"):
-                drops += commit_core(
-                    adj, adjd, wave, pts, sel_d, sel_p,
-                    metric_name=metric_name, m0=m0, heuristic=heur,
-                    pend_cap=pend_cap, rev_rounds=rev_rounds,
-                    pd_dtype=pd_dtype)
+            if (li, s) <= resume:
+                done += e - s
+                continue           # inserted in the checkpointed state
+            drops += _insert_wave(adj, adjd, _wave_of(s, e, cfg.wave_size,
+                                                      dev),
+                                  s, pts, layers, ops, flat_ops, plan,
+                                  links)
             done += e - s
+            waves += 1
             if progress is not None:
                 progress(done, n, f"layer {layer}")
-        if layer > 0:
+            if checkpoint is not None and waves % checkpoint_every == 0:
+                with _span("build.checkpoint"):
+                    _save_ckpt(checkpoint, key, seed, adj, adjd, layers,
+                               sizes, m, li, s, drops)
+        if layer > 0 and li >= resume[0]:
             layers.append(adj[:end, :m].clone())
+    if checkpoint is not None and os.path.exists(checkpoint):
+        os.remove(checkpoint)     # build complete
     layers.reverse()  # as the reference stores them: layers[l-1] = level l
     reverse_drops = int(drops)
-    _warn_reverse_drops(reverse_drops, pend_cap, rev_rounds)
+    _warn_reverse_drops(reverse_drops, plan.pend_cap, plan.rev_rounds)
     return BuiltGraph(pts, adj[:n], layers, ids, cfg,
                       reverse_drops=reverse_drops)
+
+
+# ---------------------------------------------------------------------------
+# incremental insertion
+# ---------------------------------------------------------------------------
+
+def _recompute_adjd(points, adj, metric_name, dtype, chunk: int = 16384):
+    """The neighbour-distance cache ``adjd[i, j] = d(p_i, adj[i, j])``
+    (inf for -1) of an existing graph, ``chunk`` rows at a time: an add
+    to an index whose build-time cache is gone (a loaded or freshly
+    built index) starts here."""
+    metric = resolve(metric_name)
+    outs = []
+    for s in range(0, adj.shape[0], chunk):
+        rows = adj[s:s + chunk]
+        dd = metric.gathered(points[s:s + rows.shape[0]],
+                             points[rows.clamp(min=0)])
+        outs.append(torch.where(rows >= 0, dd, torch.inf).to(dtype))
+    if not outs:
+        return torch.zeros((0, adj.shape[1]), dtype=dtype,
+                           device=adj.device)
+    return torch.cat(outs)
+
+
+def extend_graph(points, zero, layers, new_points, config: Config,
+                 adjd=None, progress=None):
+    """Insert ``new_points`` [A, D] at layer 0 of an existing graph
+    (``points`` [N, D], ``zero`` [N, m0], ``layers`` as stored) with the
+    build's wave recipe against the frozen upper layers (the JAX
+    ``extend_graph``): new pids N..N+A-1, in order.  ``adjd`` is the
+    distance cache of an earlier add (None: recomputed).
+
+    Returns ``(points [N+A, D] f32, zero [N+A, m0], adjd [N+A+1, m0],
+    reverse_drops)``, all new tensors: nothing passed in is written,
+    so objects sharing the old tensors keep their snapshot.
+    """
+    cfg = config
+    m0 = cfg.m0
+    dev = zero.device
+    new_pts = new_points.to(dev, torch.float32)
+    n_old = zero.shape[0]
+    a = new_pts.shape[0]
+    n_total = n_old + a
+    if n_old == 0:
+        raise ValueError("cannot add to an empty index; use build()")
+    if n_total >= 2**31:
+        raise ValueError("point count must fit in int32")
+
+    all_pts = torch.cat([points.to(dev, torch.float32), new_pts])
+    adj = torch.cat([zero.to(torch.int32),
+                     torch.full((a + 1, m0), -1, dtype=torch.int32,
+                                device=dev)])
+    cache_dtype = torch_dtype(cfg.dist_cache_dtype)
+    if adjd is not None and adjd.shape[0] >= n_old:
+        old_d = adjd[:n_old].to(cache_dtype)
+    else:
+        old_d = _recompute_adjd(all_pts, adj[:n_old], cfg.metric,
+                                cache_dtype)
+    adjd = torch.cat([old_d, torch.full((a + 1, m0), torch.inf,
+                                        dtype=cache_dtype, device=dev)])
+    uppers = [l.to(dev, torch.int32) for l in reversed(layers)]
+    plan = _plan_of(cfg, n_total, all_pts.shape[1], allow_split=False)
+    ops, flat_ops = _scan_operands(all_pts, plan)
+    if plan.sampling:
+        # pids [0, cap) of the original build are a uniform sample (its
+        # insertion order was a seeded shuffle)
+        ops = _cap_scan_ops(ops, plan, all_pts.shape[1])
+    drops = torch.zeros((), dtype=torch.int64, device=dev)
+    done = 0
+    for s, e in _wave_schedule(n_old, n_total, cfg.wave_size):
+        drops += _insert_wave(adj, adjd, _wave_of(s, e, cfg.wave_size, dev),
+                              s, all_pts, uppers, ops, flat_ops, plan, m0)
+        done += e - s
+        if progress is not None:
+            progress(done, a, "add")
+    reverse_drops = int(drops)
+    _warn_reverse_drops(reverse_drops, plan.pend_cap, plan.rev_rounds)
+    return all_pts, adj[:n_total], adjd, reverse_drops

@@ -282,14 +282,14 @@ def load_bincode(fname: str, dims: int = REFERENCE_DIMS, m: int = 32,
 
 def dump_sharded(index, fname: str) -> None:
     raise NotImplementedError(
-        "sharded indices are not ported yet (ROADMAP.md, still to port: "
-        "the parallel/* wrappers)")
+        "sharded indices are not ported yet (ROADMAP.md §1 item 6, the "
+        "parallel/* wrappers)")
 
 
 def load_sharded(fname: str, mesh=None):
     raise NotImplementedError(
-        "sharded indices are not ported yet (ROADMAP.md, still to port: "
-        "the parallel/* wrappers)")
+        "sharded indices are not ported yet (ROADMAP.md §1 item 6, the "
+        "parallel/* wrappers)")
 
 
 # ---------------------------------------------------------------------------

@@ -34,10 +34,14 @@ The port stands alone: a subprocess builds and searches with ``jax`` and
 ``recall_at_k`` equal the JAX package's.  Numpy input with no ``device``
 goes to the CUDA card, and raises where there is none (here).
 
-The checks run as one test item that pays for one JAX build: each item
-the suite collects shifts how pytest-xdist splits the whole suite into
-chunks, and one item keeps that split as it is without the port (the
-reasoning is in CHANGES.md).
+The build modes beyond scan_fused, checkpoints and ``add`` are checked by
+``tests/test_torch_construct.py`` on the same JAX-built graph.
+
+The checks run as one test item that pays for one JAX build here (and
+three in tests/test_torch_construct.py): each item the suite collects
+shifts how pytest-xdist splits the whole suite into chunks, and one item
+keeps that split as it is without the port (the reasoning is in
+CHANGES.md).
 """
 
 import dataclasses
@@ -75,6 +79,7 @@ from instant_distance_tpu_torch.utils import metrics as tmetrics
 from instant_distance_tpu_torch.utils.convert import (as_tensor,
                                                        hnsw_from_arrays,
                                                        scan_from_points)
+from test_torch_construct import check_cpu as check_construct
 from test_torch_packed import check_cpu as check_packed_path
 
 # Tiny shapes: more threads only add synchronisation under a parallel run.
@@ -263,7 +268,8 @@ def _check_sort2_ties():
 
 def _check_runs_without_jax():
     """The port imports nothing of JAX or the JAX package: a tiny CPU
-    build (K1 and K2 routes), graph search, kernel-path scans, and a
+    build (K1 and K2 routes), a beam build with a callable metric and an
+    add to it, graph search, kernel-path scans, and a
     dump, load, pack and packed search (both routes) succeed with
     ``jax`` and ``instant_distance_tpu`` blocked, and so do the dataset
     and recall helpers that chip_smoke.py imports."""
@@ -280,6 +286,10 @@ def _check_runs_without_jax():
         "        metric=metric), device='cpu')\n"
         "    d, p = idx.search_batch(pts[:4], k=3)\n"
         "    assert recall_at_k(p[:, :1].numpy(), ids[:4, None]) == 1.0\n"
+        "beam, _ = t.Hnsw.build(pts, t.Config(seed=1, m=4, wave_size=32,\n"
+        "    metric=lambda a, b: ((a - b) ** 2).sum()), device='cpu')\n"
+        "assert (beam.add(pts[:5] + 0.5) == np.arange(300, 305)).all()\n"
+        "assert beam.search_batch(pts[:5] + 0.5, k=1)[1][0, 0] == 300\n"
         "for fused in ('bucket_pack', 'bucket_int', 'bucket', 'topt'):\n"
         "    d, i = t.ScanIndex(pts, device='cpu').search_batch(\n"
         "        pts[:4], k=3, fused=fused, lsub=8, cb=64)\n"
@@ -430,15 +440,11 @@ def _check_signatures():
                          SEARCH_CFG, device="cpu")
     hmap = HnswMap(h.points, h.zero, h.layers, SEARCH_CFG, list(range(40)))
     for call, item in (
-            (lambda: h.add(pts[:2]), "§1 item 2"),
-            (lambda: hmap.add(pts[:2], [0, 1]), "§1 item 2"),
-            (lambda: ScanIndex(pts, device="cpu").add(pts[:2]), "§1 item 2"),
             (lambda: Hnsw.build(pts, CFG, backend="native", device="cpu"),
-             "§1 item 3"),
-            (lambda: Hnsw.build(pts, CFG, checkpoint="c", device="cpu"),
              "§1 item 1"),
-            (lambda: HnswMap.build(pts, list(range(40)), CFG, checkpoint="c",
-                                   device="cpu"), "§1 item 1")):
+            (lambda: HnswMap.build(pts, list(range(40)), CFG,
+                                   backend="native", device="cpu"),
+             "§1 item 1")):
         with pytest.raises(NotImplementedError, match=item):
             call()
 
@@ -486,6 +492,7 @@ def test_build_and_search_match_jax():
     _check_empty_batch_width(arrays)
     _check_signatures()
     check_packed_path(arrays, queries)
+    check_construct(arrays, queries)
 
     _check_k2_builds()
     _check_reverse_grouping()

@@ -8,7 +8,8 @@ so it runs on a machine that has only PyTorch:
 Tolerance: none.  K1, K3 and K6 are integer kernels; K2, K4 and K5
 round every f32 operation in the plain version's order, so distances
 and ids are bit-exact too.  Each case also checks that the wrapper
-counted one launch.  One test item, for the reason given in
+counted one launch.  A callable metric's row blocks agree with one block
+within 1e-6 relative.  One test item, for the reason given in
 tests/test_torch_scan.py; the K4 and K6 checks live in
 tests/test_torch_packed.py (``check_card``).
 """
@@ -25,7 +26,9 @@ pytestmark = pytest.mark.gpu
 #: K1: (B, D, N, lsub, cb, groups, variant).  The new tile's edges: a
 #: batch of 1 and batches one past the 128-query tile, D tails (D % 32),
 #: two chunks of d (D > 512), N/lsub not a multiple of the 64-column
-#: tile, cb/lsub % 16 != 0 and misaligned codes (the plain staging path).
+#: tile, cb/lsub % 16 != 0, misaligned codes (the plain staging path) and
+#: a column count that is a multiple of 8192 but not of 16384 (the capped
+#: operands of a sampled build, ``construct_sample_cols``).
 #: Variants: "extreme" puts every code at +-127 (D * lsub = 16384, the
 #: guard's edge of |dot| * lsub < 2^28); "misaligned" shifts codes_t's
 #: data off 16-byte alignment.
@@ -41,6 +44,7 @@ PACKED_CASES = (
     (130, 300, 8192, 32, 4096, 0, ""),
     (64, 1024, 16384, 16, 4096, 0, ""),      # two chunks of d
     (40, 128, 8192, 32, 2048, 0, "misaligned"),
+    (4096, 96, 3 * 8192, 64, 8192, 0, ""),   # a sampled build's capped scan
 )
 #: K2 / K3 / K5: (B, D, N, lsub, cb, variant); each runs K2 and K5 both
 #: ways of is_dot.  300 is the fastText width of the 300-d path.  K5's
@@ -220,8 +224,33 @@ def _check_malformed(cuda):
                             cb=64)
 
 
+def _check_callable_blocks(cuda):
+    """A callable metric's ``self_pairwise`` on the card, in row blocks
+    and in one block: equal within 1e-6 relative (a CUDA reduction's
+    order may depend on the tensor's size), and equal to sq-L2."""
+    from instant_distance_tpu_torch.ops import distance as tdist
+
+    g = torch.Generator().manual_seed(5)
+    p = torch.rand((64, 40, 96), generator=g).to(cuda)
+    metric = tdist.Metric(lambda a, b: ((a - b) ** 2).sum())
+    saved = tdist.CALLABLE_ELEMS
+    try:
+        tdist.CALLABLE_ELEMS = 1 << 30
+        whole = metric.self_pairwise(p)
+        tdist.CALLABLE_ELEMS = 40 * 40 * 96 * 3       # three rows a block
+        blocks = metric.self_pairwise(p)
+    finally:
+        tdist.CALLABLE_ELEMS = saved
+    np.testing.assert_allclose(blocks.cpu().numpy(), whole.cpu().numpy(),
+                               rtol=1e-6, atol=0)
+    named = tdist.Metric("sqeuclidean").self_pairwise(p)
+    np.testing.assert_allclose(whole.cpu().numpy(), named.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
 def test_kernel_matches_plain(cuda):
     _check_packed(cuda)
     _check_bucket(cuda)
     _check_malformed(cuda)
+    _check_callable_blocks(cuda)
     check_packed_kernels(cuda)
