@@ -28,10 +28,19 @@ against its plain torch version:
                 group minima and the top-T merge;
   4. scan     — ScanIndex(fused="bucket_pack") over SIFT1M-shaped data
                 (1M x 128), an 8192-query batch: qps, recall@10 vs
-                BruteForce (K1); then the attribution path: K6's three
-                modes on that very batch's operands, timed beside K1;
+                BruteForce (K1); the grouped selections on the same index
+                (scan kgroup: bench.py's sel_kgroup=2 arguments, K1 with
+                groups; scan group: sel_group=4); then the attribution
+                path: K6's three modes on that very batch's operands,
+                timed beside K1;
   5. hnsw     — Hnsw.build at --build-n points (default 1M) of that data,
                 then search_batch(ef=50): build time, qps, recall (K1);
+     hybrid   — HybridIndex over that graph with a ScanIndex of its points
+                as the device route: the lift to the host engine, host qps
+                on all cores, single-query p50 on the host, the device and
+                the hybrid after calibrate(), and the routing gates (B=1
+                equal to the host engine's result, a filter on the device,
+                threshold 1 equal to the ScanIndex's result);
   6. packed   — the serving flow on that index: dump (native npz), load,
                 PackedHnsw.from_index, search_batch_kernel (K4) on an
                 8192-query batch with the seed scan, once more with
@@ -48,11 +57,18 @@ against its plain torch version:
   9. packed300 — PackedHnsw.from_index of that map (D = 300 unpadded),
                 search_batch_kernel (K4) and search_batch_values;
  10. add      — on phase 4's data: Hnsw.build of the first 868,928
-                points, then index.add of the other 131,072 in four calls
-                (K1), search_batch(ef=50) against the truth over all 1M,
-                PackedHnsw.from_index of the grown index (K4), and a
-                ScanIndex grown by add whose bucket_pack results must
+                points (dumped), then index.add of the other 131,072 in
+                four calls (K1), search_batch(ef=50) against the truth over
+                all 1M, PackedHnsw.from_index of the grown index (K4), and
+                a ScanIndex grown by add whose bucket_pack results must
                 equal phase 4's one-shot ScanIndex bit for bit (K1);
+     streaming — StreamingHnsw.load of that dump (serving="scan"), the
+                same four chunks added with a compaction every 65,536
+                pending rows; after each add a bucket_pack batch (K1)
+                against the truth over the rows visible then, and each
+                chunk's first 1,024 rows found at rank 0; then a packed
+                serving form of the same graph, compiled before the last
+                chunk, searched with that chunk pending;
  11. beam     — the first 131,072 rows of that data built with a torch
                 callable metric (beam-mode waves, no scan kernel), and
                 32,768 rows with Heuristic(extend_candidates=True) (K1);
@@ -62,6 +78,13 @@ against its plain torch version:
                 every 8 waves stopped halfway by its progress callback,
                 build C resumed from B's file: C equals A bit for bit and
                 the file is gone;
+     native   — Hnsw.build(backend="native") of 65,536 of those points on
+                all host cores, beside the card's wave build of the same
+                points; served on the card (search_batch, and PackedHnsw's
+                search_batch_kernel, K4);
+     cli      — python -m instant_distance_tpu_torch in subprocesses: info,
+                validate, convert (npz -> bincode -> info) and selftest on
+                the native index's dump, build and search on a small .npy;
  13. sampled  — DEEP-shaped data (1M x 96), construct_sample_cols=262,144
                 with the split flag on (the repair in the commit), K1 on
                 the capped columns;
@@ -69,8 +92,10 @@ against its plain torch version:
                 with the launch counts set to 0 just before it and read
                 just after).
 
-Every new phase prints its wall time, build time, pts/s and peak memory
-and gates recall@10 like the others.
+Every build phase prints its wall time, build time, pts/s and peak
+memory and gates recall@10 like the others.  The serving phases print the
+card's name and power limit beside card numbers, and the CPU model and
+core count beside host numbers.
 
 Every phase prints a line; any failure raises and the exit code is not
 0.  The last two lines are the kernel record and the device record, one
@@ -122,6 +147,21 @@ CKPT_N, CKPT_PREFIX, CKPT_EVERY = 262_144, 131_072, 8
 #: points to 1M and from a 2^22 cap to 2^18, for the smoke's time).
 DEEP_N, DEEP_DIM, SAMPLE_COLS = 1_000_000, 96, 262_144
 
+#: The grouped selections of ScanIndex bucket_pack: bench.py's
+#: scan_fused_kgroup arguments (bench.py:330-331; its qb is a TPU knob),
+#: and sel_group at the smoke's own bucket_pack arguments.
+KGROUP_KW = dict(k=K, fused="bucket_pack", cb=16384, lsub=64, inner=1,
+                 sel_kgroup=2, ef=32)
+GROUP_KW = dict(SCAN_KW, sel_group=4)
+#: The hybrid path: queries timed one at a time, and the host batch.
+P50_QUERIES, HOST_BATCH = 32, 8192
+#: The native path: points built by the host engine (and by the card's
+#: waves beside it).
+NATIVE_N = 65_536
+#: The streaming path: slab rows that trigger a compaction, and the rows
+#: of each added chunk searched for themselves (read-your-writes).
+STREAM_REPACK, RYW_ROWS = 65_536, 1024
+
 #: Kernels whose product runs on the int8 tensor cores (K1 with K6; K2
 #: and K3, one template; K5): the build phase fails if their machine code
 #: holds no IMMA/IGMMA or any __dp4a (IDP.4A).  Mangled, a template
@@ -152,6 +192,27 @@ KERNELS = {
 
 def _phase(name: str, msg: str) -> None:
     print(f"[{name}] {msg}", flush=True)
+
+
+#: The card's name and power limit (nvidia-smi), and the host's CPU model
+#: and core count, printed beside the numbers of the serving phases.
+CARD = HOST = ""
+
+
+def _cpu_model() -> str:
+    """/proc/cpuinfo's model name; where that says "unknown" (as in some
+    virtual machines), its vendor, family and model numbers."""
+    info = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            info.setdefault(key.strip(), value.strip())
+    name = info.get("model name", "unknown")
+    if name.lower() != "unknown":
+        return name
+    return (f"CPU {info.get('vendor_id', '?')} family "
+            f"{info.get('cpu family', '?')} model {info.get('model', '?')} "
+            "(model name unknown)")
 
 
 def _padded(n: int, to: int) -> int:
@@ -258,6 +319,10 @@ KERNEL_CASES = (
      _padded(N_POINTS, 8192 * 2), 64, 8192, {}),
     ("slice", "fused_scan_bucket_int_packed", 1024, DIM, 65536, 64, 8192,
      {"groups": 2}),
+    # the sel_kgroup scan: K1 with its second-level group min
+    ("kgroup batch", "fused_scan_bucket_int_packed", N_QUERIES, DIM,
+     _padded(N_POINTS, KGROUP_KW["cb"]), KGROUP_KW["lsub"], KGROUP_KW["cb"],
+     {"groups": KGROUP_KW["sel_kgroup"]}),
     ("build wave", "fused_scan_bucket_int_packed", 4096, DIM,
      _padded(N_POINTS, 8192), 64, 8192, {}),
     ("build wave", "fused_scan_bucket", 4096, DIM300,
@@ -611,7 +676,7 @@ def _check_recall(recs, what: str) -> None:
         raise AssertionError(f"{what} recall {min(recs)} < {RECALL_FLOOR}")
 
 
-def _scan(torch, launches, path, index, queries, gt, kw):
+def _scan(torch, launches, path, index, queries, gt, kw, tag=""):
     """One ScanIndex path: a checked batch, then the timed repeats."""
     def run():
         d, i = index.search_batch(queries, **kw)
@@ -624,7 +689,8 @@ def _scan(torch, launches, path, index, queries, gt, kw):
     _phase(path, f"{kw}: {queries.shape[0] / t:.1f} qps "
            f"({t * 1e3:.2f} ms/batch of {queries.shape[0]}), recall@10 "
            f"blocks {[round(r, 4) for r in recs]}, launches "
-           f"{ {k: v for k, v in launches.paths[path].items() if v} }")
+           f"{ {k: v for k, v in launches.paths[path].items() if v} }"
+           + (f" [{tag}]" if tag else ""))
     _check_recall(recs, path)
     return result
 
@@ -786,9 +852,11 @@ def _report_build(torch, idt, launches, path, index, queries, n, build_s,
     return recs
 
 
-def phase_add(torch, idt, launches, pts, queries, gt, one_shot, hnsw_recs):
+def phase_add(torch, idt, launches, pts, queries, gt, one_shot, hnsw_recs,
+              base_file):
     """Phase 10: grow an index and a ScanIndex by add (K1), serve the
-    grown index packed (K4)."""
+    grown index packed (K4).  The base index is dumped to ``base_file``
+    before it grows (the streaming phase loads it)."""
     cfg = idt.Config(seed=3, m=32, wave_size=4096, ef_search=50)
     t_wall = time.perf_counter()
     (index, ids), build_s, peak = _build_path(
@@ -796,6 +864,11 @@ def phase_add(torch, idt, launches, pts, queries, gt, one_shot, hnsw_recs):
         lambda progress: idt.Hnsw.build(pts[:ADD_BASE], cfg,
                                         progress=progress))
     launches.need("add base", ["fused_scan_bucket_int_packed"])
+    t0 = time.perf_counter()
+    index.dump(base_file)
+    _phase("add", f"base dumped for the streaming phase: "
+           f"{os.path.getsize(base_file) / 1e9:.2f} GB in "
+           f"{time.perf_counter() - t0:.2f} s")
     step = (N_POINTS - ADD_BASE) // ADD_CALLS
 
     def grow():
@@ -995,11 +1068,286 @@ def phase_sampled(torch, idt, launches, dev):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the serving surface: grouped scan selection, HybridIndex, the host
+# engine, StreamingHnsw and the CLI
+# ---------------------------------------------------------------------------
+
+def phase_scan_groups(torch, launches, scan, queries, gt):
+    """ScanIndex bucket_pack with sel_kgroup (K1 with groups) and with
+    sel_group (a grouped min over K1's keys)."""
+    for path, kw in (("scan kgroup", KGROUP_KW), ("scan group", GROUP_KW)):
+        _scan(torch, launches, path, scan, queries, gt, kw, tag=CARD)
+        launches.need(path, ["fused_scan_bucket_int_packed"])
+
+
+def _p50_ms(torch, fn, n: int) -> float:
+    """Median host milliseconds of fn(i) for i < n, each ended by a device
+    sync."""
+    fn(0)
+    torch.cuda.synchronize()
+    lat = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        fn(i)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    return float(np.median(lat) * 1e3)
+
+
+def phase_hybrid(torch, idt, launches, index, queries):
+    """HybridIndex over the 1M x 128 graph with a ScanIndex of its points
+    (pid order) as the device route: the lift, host qps on all cores,
+    single-query p50 on each route, calibrate, and the routing gates."""
+    from instant_distance_tpu_torch import native
+
+    if not native.available():
+        raise AssertionError(f"hybrid: no host engine: {native.load_error()}")
+    nq = N_BLOCKS * BLOCK
+    gt = idt.BruteForce(index.points).search_batch(queries[:nq], K)[1].cpu()
+    scan = idt.ScanIndex.from_index(index)
+    q_np = queries.cpu().numpy()
+    t0 = time.perf_counter()
+    hyb = idt.HybridIndex(index, tpu_index=scan)
+    lift_s = time.perf_counter() - t0
+    if not hyb.host_available:
+        raise AssertionError(f"hybrid: no host engine: {native.load_error()}")
+    host, ef = hyb._host, hyb.ef
+    n = len(index)
+    _phase("hybrid", f"lift {n}x{index.points.shape[1]} (points, zero, "
+           f"{len(index.layers)} upper layers; "
+           f"{n * (index.points.shape[1] + 2 * index.config.m) * 4 / 1e9:.2f}"
+           f" GB) to the host engine: {lift_s:.2f} s [{HOST}]")
+
+    def host_all():
+        return host.search_batch(q_np[:HOST_BATCH], ef=ef, k=K, n_threads=0)
+
+    host_all()
+    t0 = time.perf_counter()
+    hd, hi = host_all()
+    host_s = time.perf_counter() - t0
+    recs = _recall_blocks(hi[:nq], gt)
+    _phase("hybrid", f"host engine, all {os.cpu_count()} cores, batch "
+           f"{HOST_BATCH} ef={ef}: {HOST_BATCH / host_s:.1f} qps, recall@10 "
+           f"blocks {[round(r, 4) for r in recs]} [{HOST}]")
+    _check_recall(recs, "hybrid host")
+
+    host_p50 = _p50_ms(torch, lambda i: host.search_batch(
+        q_np[i:i + 1], ef=ef, k=K, n_threads=1), P50_QUERIES)
+
+    def device_one(i):
+        d, _ = scan.search_batch(q_np[i:i + 1], k=K, ef=ef)
+        return d
+
+    device_p50 = _p50_ms(torch, device_one, P50_QUERIES)
+    threshold = launches.run("hybrid calibrate", lambda: hyb.calibrate(
+        q_np[:N_QUERIES], k=K, iters=4))
+    hybrid_p50 = _p50_ms(torch, lambda i: hyb.search_batch(q_np[i:i + 1],
+                                                           k=K), P50_QUERIES)
+    _phase("hybrid", f"single-query p50 over {P50_QUERIES} queries: host "
+           f"(1 thread) {host_p50:.4f} ms [{HOST}]; device (B=1, ScanIndex "
+           f"search_batch) {device_p50:.4f} ms [{CARD}]; calibrate("
+           f"{N_QUERIES} queries, iters=4) -> threshold {threshold}; hybrid "
+           f"{hybrid_p50:.4f} ms ({'host' if threshold > 1 else 'device'} "
+           "route)")
+
+    # routing: B=1 to the host engine, a filter to the device, and with
+    # threshold 1 everything to the device
+    hyb.threshold = 2
+    d, i = hyb.search_batch(q_np[:1], k=K)
+    wd, wi = host.search_batch(q_np[:1], ef=max(ef, K), k=K, n_threads=1)
+    if not (isinstance(i, np.ndarray) and np.array_equal(i, wi)
+            and np.array_equal(d, wd)):
+        raise AssertionError("hybrid: a B=1 result differs from the host "
+                             "engine's")
+    mask = torch.zeros(n, dtype=torch.bool, device=index.device)
+    mask[::2] = True
+    d, i = hyb.search_batch(q_np[:1], k=K, filter_mask=mask)
+    if not (isinstance(i, torch.Tensor) and i.device == index.device
+            and bool((i % 2 == 0).all())):
+        raise AssertionError("hybrid: a filtered B=1 call did not route to "
+                             "the device")
+    hyb.threshold = 1
+    d, i = hyb.search_batch(q_np, k=K)
+    wd, wi = scan.search_batch(q_np, k=K, ef=ef)
+    if not (torch.equal(i, wi) and torch.equal(d, wd)):
+        raise AssertionError("hybrid: a B=8192 result differs from the "
+                             "ScanIndex's")
+    hyb.threshold = threshold
+    _phase("hybrid", "routing: B=1 equals the host engine's result bit for "
+           "bit (threshold 2); a filtered B=1 call ran on the device; "
+           f"B={N_QUERIES} equals ScanIndex.search_batch bit for bit "
+           f"(threshold 1); threshold restored to {threshold}")
+    del hyb, scan, host
+    torch.cuda.empty_cache()
+
+
+def phase_native(torch, idt, launches, pts, queries, fname):
+    """Hnsw.build(backend="native") of NATIVE_N points on all host cores,
+    the card's wave build of the same points beside it, the native graph
+    served on the card (search_batch, and PackedHnsw's K4) and dumped to
+    ``fname`` for the CLI phase."""
+    sub = pts[:NATIVE_N]
+    cfg = idt.Config(seed=3, m=32, wave_size=4096, ef_search=50)
+    (index, _), native_s, native_peak = _timed(torch, lambda: launches.run(
+        "native build", lambda: idt.Hnsw.build(sub, cfg, backend="native")))
+    launches.need("native build", [], absent=list(KERNELS))
+    (_, _), wave_s, peak = _build_path(
+        torch, launches, "native wave",
+        lambda progress: idt.Hnsw.build(sub, cfg, progress=progress))
+    launches.need("native wave", ["fused_scan_bucket_int_packed"])
+    _phase("native", f"Hnsw.build(backend='native') {NATIVE_N}x{DIM} m=32 "
+           f"on {os.cpu_count()} cores: {native_s:.2f} s "
+           f"({NATIVE_N / native_s:.1f} pts/s) [{HOST}]; the card's wave "
+           f"build of the same points: {wave_s:.2f} s "
+           f"({NATIVE_N / wave_s:.1f} pts/s, peak {peak:.2f} GiB) [{CARD}]")
+    _report_build(torch, idt, launches, "native", index, queries, NATIVE_N,
+                  native_s, native_peak)
+    _packed_path(torch, idt, launches, "native packed", index, queries,
+                 plain_route=False)
+    index.dump(fname)
+    del index
+    torch.cuda.empty_cache()
+
+
+def phase_streaming(torch, idt, launches, base_file, pts, queries):
+    """StreamingHnsw.load of the add phase's base with serving="scan",
+    four chunks added with a compaction every STREAM_REPACK pending rows;
+    after each add a bucket_pack batch (K1) gated against the truth over
+    the rows visible then, and read-your-writes.  A packed serving form of
+    the same graph, compiled before the last chunk, then searches with
+    that chunk pending (plain-op route)."""
+    t_wall = time.perf_counter()
+    stream, load_s, _ = _timed(torch, lambda: idt.StreamingHnsw.load(
+        base_file, serving="scan", repack_every=STREAM_REPACK))
+    compactions = []
+    compact = stream.compact
+
+    def timed_compact():
+        t0 = time.perf_counter()
+        compact()
+        torch.cuda.synchronize()
+        compactions.append(time.perf_counter() - t0)
+
+    stream.compact = timed_compact
+    _phase("streaming", f"StreamingHnsw.load({len(stream)} points, "
+           f"serving='scan', repack_every={STREAM_REPACK}): {load_s:.2f} s "
+           f"[{CARD}]")
+    step = (N_POINTS - ADD_BASE) // ADD_CALLS
+    nq = N_BLOCKS * BLOCK
+    packed = None
+
+    def ryw(s, rows, pids, what, **kw):
+        _, p = s.search_batch(rows[:RYW_ROWS], **kw)
+        if not np.array_equal(p[:, 0].cpu().numpy(), pids[:RYW_ROWS]):
+            raise AssertionError(f"{what}: a just-added point was not found "
+                                 "at rank 0")
+
+    for c in range(ADD_CALLS):
+        if c == ADD_CALLS - 1:
+            packed = idt.StreamingHnsw(stream.graph, serving="packed")
+        rows = pts[ADD_BASE + c * step:ADD_BASE + (c + 1) * step]
+        n_compact = len(compactions)
+        pids, add_s, _ = _timed(torch, lambda: stream.add(rows))
+        # the first batch after an add: after a compaction it also builds
+        # the scan form's kernel operands, which ScanIndex makes lazily
+        _, first_s, _ = _timed(torch, lambda: stream.search_batch(
+            queries, **SCAN_KW))
+        path = f"streaming add {c + 1}"
+        gt = idt.BruteForce(stream.graph.points).search_batch(
+            queries[:nq], K)[1].cpu()
+        _scan(torch, launches, path, stream, queries, gt, SCAN_KW, tag=CARD)
+        launches.need(path, ["fused_scan_bucket_int_packed"])
+        ryw(stream, rows, pids, path, **SCAN_KW)
+        _phase("streaming", f"add {c + 1}: {step} points in {add_s:.2f} s"
+               + (f" (compaction {compactions[-1] * 1e3:.2f} ms)"
+                  if len(compactions) > n_compact else "")
+               + f"; first batch after it {first_s * 1e3:.2f} ms; "
+               f"{len(stream)} points, {stream.n_pending} pending; "
+               f"read-your-writes: the chunk's first {RYW_ROWS} rows found at "
+               f"rank 0 [{CARD}]")
+    if len(compactions) != ADD_CALLS * step // STREAM_REPACK:
+        raise AssertionError(f"streaming: {len(compactions)} compactions")
+
+    gt = idt.BruteForce(packed.graph.points).search_batch(
+        queries[:nq], K)[1].cpu()
+
+    def serve_packed():
+        out = [packed.search_batch(queries[b * BLOCK:(b + 1) * BLOCK], k=K)
+               for b in range(N_BLOCKS)]
+        return torch.cat([p for _, p in out])
+
+    p = launches.run("streaming packed", serve_packed)
+    launches.need("streaming packed", [], absent=["walk_search"])
+    recs = _recall_blocks(p.cpu(), gt)
+    t = _wall_s(torch, lambda: packed.search_batch(queries[:BLOCK], k=K), 3)
+    ryw(packed, rows, pids, "streaming packed", k=K)
+    _phase("streaming", f"serving='packed' (compiled before add "
+           f"{ADD_CALLS}, {packed.n_pending} rows pending), search_batch "
+           f"batch {BLOCK}: {BLOCK / t:.1f} qps, recall@10 blocks "
+           f"{[round(r, 4) for r in recs]}; read-your-writes holds; "
+           f"compactions {[round(x * 1e3, 2) for x in compactions]} ms; wall "
+           f"{time.perf_counter() - t_wall:.1f} s [{CARD}]")
+    _check_recall(recs, "streaming packed")
+    del stream, packed
+    torch.cuda.empty_cache()
+
+
+def phase_cli(idt_root, tmp, fname, pts):
+    """``python -m instant_distance_tpu_torch`` in subprocesses: info,
+    validate, convert (npz -> bincode -> info) and selftest on the native
+    phase's dump, then build and search on a small .npy."""
+    py = [sys.executable, "-m", "instant_distance_tpu_torch"]
+    env = dict(os.environ, PYTHONPATH=idt_root)
+
+    def run(*argv):
+        t0 = time.perf_counter()
+        res = subprocess.run([*py, *argv], capture_output=True, text=True,
+                             cwd=idt_root, env=env, timeout=300)
+        if res.returncode != 0:
+            raise AssertionError(f"cli {argv[0]}: exit {res.returncode}\n"
+                                 f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+        return res.stdout, time.perf_counter() - t0
+
+    secs = {}
+    out, secs["info"] = run("info", fname)
+    info = json.loads(out)
+    out, secs["validate"] = run("validate", fname)
+    if not json.loads(out)["ok"]:
+        raise AssertionError(f"cli validate: {out}")
+    binf = os.path.join(tmp, "native.bin")
+    _, secs["convert"] = run("convert", fname, binf)
+    out, secs["info bincode"] = run("info", binf, "--dims", str(DIM))
+    if json.loads(out)["points"] != info["points"]:
+        raise AssertionError(f"cli: the bincode copy differs: {out}")
+    out, secs["selftest"] = run("selftest", fname)
+    selftest = json.loads(out)
+    if selftest["recall_at_10"] < RECALL_FLOOR:
+        raise AssertionError(f"cli selftest: {selftest}")
+    vecs, qf = os.path.join(tmp, "vecs.npy"), os.path.join(tmp, "q.npy")
+    np.save(vecs, pts[:4096].cpu().numpy())
+    np.save(qf, pts[:3].cpu().numpy())
+    small = os.path.join(tmp, "small.npz")
+    out, secs["build"] = run("build", vecs, small, "--seed", "3")
+    built = json.loads(out)
+    out, secs["search"] = run("search", small, qf, "--k", "3")
+    rows = [json.loads(line) for line in out.strip().splitlines()]
+    if len(rows) != 3 or any(r["distances"][0] > 1e-3 for r in rows):
+        raise AssertionError(f"cli search: {out}")
+    _phase("cli", f"info {info['points']}x{info['dims']} layers "
+           f"{info['layers']}; validate ok; convert to bincode and info; "
+           f"selftest {selftest}; build {built['points']} points in "
+           f"{built['build_s']} s; search 3 rows; every exit code 0; seconds "
+           f"a subprocess {({k: round(v, 1) for k, v in secs.items()})} "
+           f"[{CARD}; {HOST}]")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--build-n", type=int, default=N_POINTS,
                     help="points in the 128-d HNSW build (default: 1M)")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     import torch
 
@@ -1016,6 +1364,8 @@ def main(argv=None) -> int:
     _phase("device", f"{name}, {count} visible, torch {torch.__version__} "
            f"cuda {torch.version.cuda}")
     print(smi, flush=True)
+    global CARD, HOST
+    CARD, HOST = smi, f"{_cpu_model()}, {os.cpu_count()} cores"
 
     import instant_distance_tpu_torch as idt
     from instant_distance_tpu_torch.ops import _build
@@ -1058,6 +1408,7 @@ def main(argv=None) -> int:
     scan = idt.ScanIndex(pts)
     one_shot = _scan(torch, launches, "scan", scan, queries, gt, SCAN_KW)
     launches.need("scan", ["fused_scan_bucket_int_packed"])
+    phase_scan_groups(torch, launches, scan, queries, gt)
     del scan
     _attribution(torch, tsk, launches, pts, queries)
 
@@ -1076,6 +1427,7 @@ def main(argv=None) -> int:
            f"{BLOCK / t:.1f} qps, recall@10 blocks "
            f"{[round(r, 4) for r in recs]}")
     _check_recall(recs, "hnsw")
+    phase_hybrid(torch, idt, launches, index, queries)
 
     # -- 6. the packed serving flow on that index ------------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -1099,11 +1451,21 @@ def main(argv=None) -> int:
     del packed, served
     torch.cuda.empty_cache()
 
-    # -- 10-12. add, beam and checkpoint on that data ----------------------
-    phase_add(torch, idt, launches, pts, queries, gt, one_shot, hnsw_recs)
-    del one_shot
+    # -- 10-12. add (and streaming), beam and checkpoint on that data ------
+    with tempfile.TemporaryDirectory() as tmp:
+        base_file = os.path.join(tmp, "base.npz")
+        phase_add(torch, idt, launches, pts, queries, gt, one_shot, hnsw_recs,
+                  base_file)
+        del one_shot
+        phase_streaming(torch, idt, launches, base_file, pts, queries)
     phase_beam(torch, idt, launches, pts, queries)
     phase_checkpoint(torch, idt, launches, pts, queries)
+
+    # -- the host engine's build, served on the card; the CLI --------------
+    with tempfile.TemporaryDirectory() as tmp:
+        fname = os.path.join(tmp, "native.npz")
+        phase_native(torch, idt, launches, pts, queries, fname)
+        phase_cli(os.path.dirname(os.path.abspath(__file__)), tmp, fname, pts)
     del pts, queries
     torch.cuda.empty_cache()
 
@@ -1173,6 +1535,8 @@ def main(argv=None) -> int:
     _phase("launches", "; ".join(
         f"{path}: { {k: v for k, v in c.items() if v} }"
         for path, c in launches.paths.items()))
+    _phase("wall", f"{time.perf_counter() - t_start:.1f} s, the kernels' "
+           "build included")
     out = []
     for kernel, (source, replaces) in KERNELS.items():
         rec = records[kernel]

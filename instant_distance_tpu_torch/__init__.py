@@ -39,6 +39,8 @@ __all__ = [
     "BruteForce",
     "ScanIndex",
     "PackedHnsw",
+    "HybridIndex",
+    "StreamingHnsw",
     "DEFAULT_M",
     "INVALID",
 ]
@@ -62,4 +64,12 @@ def __getattr__(name):
         from .models.packed import PackedHnsw
 
         return PackedHnsw
+    if name == "HybridIndex":
+        from .models.hybrid import HybridIndex
+
+        return HybridIndex
+    if name == "StreamingHnsw":
+        from .models.streaming import StreamingHnsw
+
+        return StreamingHnsw
     raise AttributeError(name)

@@ -5,8 +5,8 @@ Same names, arguments and results as the JAX package, with torch tensors
 where it returns jax arrays.  An index lives on the device of the tensors
 it was built from (``index.device``); ``load`` takes a ``device``
 (default: the CUDA card), and ``add`` puts new points on the index's
-device.  What the port lacks still raises NotImplementedError naming its
-ROADMAP.md item: ``build(backend="native")`` (§1 item 1).
+device.  ``build(backend="native")`` builds on the host engine
+(``native/``) and puts the graph on the device.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from ..config import Config
 from ..ops.beam import hnsw_search
 from ..ops.construct import BuiltGraph, build_graph, extend_graph
 from ..ops.distance import resolve, torch_dtype
-from ..utils.convert import as_queries, as_tensor
+from ..utils.convert import as_queries, as_tensor, default_device
 
 
 @dataclasses.dataclass
@@ -88,14 +88,6 @@ class Search:
         if self._pids is None:
             return 0
         return int((self._pids >= 0).sum())
-
-
-def _check_build_options(backend: str) -> None:
-    """NotImplementedError for the build options the port lacks."""
-    if backend == "native":
-        raise NotImplementedError(
-            'backend="native" needs the host engine, which is not ported '
-            "yet (ROADMAP.md §1 item 1)")
 
 
 def as_new_points(x, device, dim: int):
@@ -167,8 +159,10 @@ class Hnsw:
         """Build the index; returns (index, ids) where ids maps the
         original point order to PointIds.  Builds on ``points``' device
         when it is a tensor, else on ``device`` (the CUDA card by
-        default; without one it raises).  ``backend="native"`` is not
-        ported yet and raises NotImplementedError.  ``checkpoint``: a
+        default; without one it raises).  ``backend``: "wave" = the
+        card's batched insertion waves; "native" = the multithreaded C++
+        host engine on all cores (the same construction recipe), its
+        graph then moved to that device.  ``checkpoint``: a
         path where the build saves its wave state every
         ``checkpoint_every`` waves and from which a rerun resumes
         (``ops/construct.build_graph``)."""
@@ -176,7 +170,14 @@ class Hnsw:
         if len(np.shape(points)) != 2:
             raise ValueError(f"points must be a [N, D] 2-D array, got "
                              f"shape {tuple(np.shape(points))}")
-        _check_build_options(backend)
+        if backend == "native":
+            from ..native import NativeHnsw
+
+            dev = (points.device if isinstance(points, torch.Tensor)
+                   else default_device(device))
+            eng = NativeHnsw.build(points, config)
+            pts, ids, zero, layers = eng.to_arrays(config.m)
+            return cls(as_tensor(pts, dev), zero, layers, config), ids
         g: BuiltGraph = build_graph(points, config, progress=progress,
                                     device=device, checkpoint=checkpoint,
                                     checkpoint_every=checkpoint_every)

@@ -18,10 +18,10 @@ The search paths of the JAX package:
 
 Candidate selection is exact ``torch.topk`` where the JAX package used
 ``approx_min_k`` (exact on its CPU reference, approximate on the TPU).
-``sel_group`` / ``sel_kgroup``, the grouped selection of
-``"bucket_pack"``, waits (ROADMAP.md §1 item 5) and raises
-NotImplementedError.  ``add`` appends rows; the kernels' layouts are
-rebuilt from all rows at the next fused search.
+``"bucket_pack"`` also takes the JAX package's grouped selections:
+``sel_kgroup`` (K1's second-level group min) and ``sel_group``.  ``add``
+appends rows; the kernels' layouts are rebuilt from all rows at the next
+fused search.
 """
 
 from __future__ import annotations
@@ -147,18 +147,51 @@ def _padded(eligible, npad: int):
 
 
 def _fused_int_packed_search(queries, codes_t, norms_r, sg, points,
-                             eligible, *, ef, k, lsub, cb, rerank):
-    """Packed-key scan + exact top-ef + rerank (the default selection
-    branch of ``_fused_int_packed_search_jit``, models/scan.py:321-338
-    of the JAX package)."""
+                             eligible, *, ef, k, lsub, cb, rerank,
+                             sel_group=0, sel_kgroup=0):
+    """Packed-key scan (K1) + top-ef + rerank (``_fused_int_packed_
+    search_jit``, models/scan.py:239-338 of the JAX package).
+
+    Selection, as the JAX package has it: with ``sel_kgroup = g > 1``
+    K1 also emits ``og``, the min over g strided key columns, the top-ef
+    groups are taken from ``og`` and each winner's g key columns gathered
+    back; with ``sel_group = g > 1`` the top-ef of contiguous g-wide
+    column groups of the keys; else the top-ef keys.  A grouped selection
+    keeps one candidate a group (the exact rerank absorbs the loss)."""
     d = queries.shape[1]
     qc, qs = quantize_batch(queries)
     denom = 2.0 * qs * sg
     el = (None if eligible is None
           else _padded(eligible, norms_r.shape[1])[None, :])
     w2 = pack_w2(norms_r, denom, el, lsub=lsub, cb=cb, d=d)
-    od = fused_scan_bucket_int_packed(qc, w2, codes_t, lsub=lsub, cb=cb)
-    keys, nidx = torch.topk(od, min(ef, od.shape[1]), dim=1, largest=False)
+    og = None
+    if sel_kgroup > 1:
+        od, og = fused_scan_bucket_int_packed(qc, w2, codes_t, lsub=lsub,
+                                              cb=cb, groups=sel_kgroup)
+    else:
+        od = fused_scan_bucket_int_packed(qc, w2, codes_t, lsub=lsub, cb=cb)
+    b = od.shape[0]
+    efk = min(ef, od.shape[1])
+    ct = cb // lsub
+    if og is not None and og.shape[1] >= efk:
+        # og column i covers key columns (i // ctg) * ct + g * ctg + i % ctg
+        ctg = ct // sel_kgroup
+        _, gidx = torch.topk(og, efk, dim=1, largest=False)    # [B, efk]
+        base = (gidx // ctg) * ct + gidx % ctg
+        memb = (base[:, :, None] + ctg * torch.arange(
+            sel_kgroup, dtype=base.dtype, device=base.device))
+        cand = od.gather(1, memb.reshape(b, -1)).reshape(b, efk, sel_kgroup)
+        keys, j = cand.amin(dim=2), cand.argmin(dim=2)
+        nidx = base + j * ctg
+    elif sel_group > 1 and od.shape[1] % sel_group == 0 \
+            and od.shape[1] // sel_group >= efk:
+        groups = od.view(b, -1, sel_group)
+        _, gidx = torch.topk(groups.amin(dim=2), efk, dim=1, largest=False)
+        cand = groups.gather(1, gidx[:, :, None].expand(-1, -1, sel_group))
+        keys, j = cand.amin(dim=2), cand.argmin(dim=2)
+        nidx = gidx * sel_group + j
+    else:
+        keys, nidx = torch.topk(od, efk, dim=1, largest=False)
     bi = decode_keys(keys, nidx, lsub=lsub, cb=cb)
     if not rerank:
         shift = lsub.bit_length() - 1
@@ -410,14 +443,11 @@ class ScanIndex:
                                  f"{_FUSED_MODES}, got {fused!r}")
             eligible = self._eligible(filter_mask)
             if mode == "bucket_pack":
-                if sel_group > 1 or sel_kgroup > 1:
-                    raise NotImplementedError(
-                        "sel_group/sel_kgroup grouped selection is not "
-                        "ported yet (ROADMAP.md §1 item 5)")
                 codes_t, norms_r, sg = self._fused_int_arrays(cb * inner)
                 d, i = _fused_int_packed_search(
                     queries, codes_t, norms_r, sg, self.points, eligible,
-                    ef=ef, k=k, lsub=lsub, cb=cb, rerank=rerank)
+                    ef=ef, k=k, lsub=lsub, cb=cb, rerank=rerank,
+                    sel_group=sel_group, sel_kgroup=sel_kgroup)
             elif mode == "bucket_int":
                 codes_t, norms_r, sg = self._fused_int_arrays(cb * inner)
                 d, i = _fused_int_search(

@@ -35,7 +35,9 @@ The port stands alone: a subprocess builds and searches with ``jax`` and
 goes to the CUDA card, and raises where there is none (here).
 
 The build modes beyond scan_fused, checkpoints and ``add`` are checked by
-``tests/test_torch_construct.py`` on the same JAX-built graph.
+``tests/test_torch_construct.py``, and the serving surface (host engine,
+``HybridIndex``, ``StreamingHnsw``, validation, the CLI) by
+``tests/test_torch_serving.py``, on the same JAX-built graph.
 
 The checks run as one test item that pays for one JAX build here (and
 three in tests/test_torch_construct.py): each item the suite collects
@@ -81,6 +83,7 @@ from instant_distance_tpu_torch.utils.convert import (as_tensor,
                                                        scan_from_points)
 from test_torch_construct import check_cpu as check_construct
 from test_torch_packed import check_cpu as check_packed_path
+from test_torch_serving import check_cpu as check_serving
 
 # Tiny shapes: more threads only add synchronisation under a parallel run.
 torch.set_num_threads(1)
@@ -269,10 +272,12 @@ def _check_sort2_ties():
 def _check_runs_without_jax():
     """The port imports nothing of JAX or the JAX package: a tiny CPU
     build (K1 and K2 routes), a beam build with a callable metric and an
-    add to it, graph search, kernel-path scans, and a
-    dump, load, pack and packed search (both routes) succeed with
-    ``jax`` and ``instant_distance_tpu`` blocked, and so do the dataset
-    and recall helpers that chip_smoke.py imports."""
+    add to it, graph search, kernel-path scans, a dump, load, pack and
+    packed search (both routes), and a native build served by
+    ``HybridIndex`` and ``StreamingHnsw`` (with the CLI, validation and
+    profiling modules imported) succeed with ``jax`` and
+    ``instant_distance_tpu`` blocked, and so do the dataset and recall
+    helpers that chip_smoke.py imports."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = sys.modules['instant_distance_tpu'] = None\n"
@@ -305,6 +310,20 @@ def _check_runs_without_jax():
         "for p in (pk.search_batch(q, k=3)[1],\n"
         "          pk.search_batch_kernel(q, k=3, entry_seeds=64)[1]):\n"
         "    assert (p[:, 0].numpy() == np.arange(4)).all()\n"
+        "from instant_distance_tpu_torch import native\n"
+        "from instant_distance_tpu_torch.models.hybrid import HybridIndex\n"
+        "from instant_distance_tpu_torch.utils import profiling, validate\n"
+        "from instant_distance_tpu_torch.__main__ import main\n"
+        "nat, _ = t.Hnsw.build(pts, t.Config(seed=1, m=4), backend='native',\n"
+        "    device='cpu')\n"
+        "assert validate.validate_graph(nat).ok\n"
+        "assert (HybridIndex(nat).search_batch(pts[:2], k=1)[1][:, 0]\n"
+        "        == nat.search_batch(pts[:2], k=1)[1][:, 0].numpy()).all()\n"
+        "s = t.StreamingHnsw(nat, serving='scan')\n"
+        "assert s.search_batch(pts[:3] + 1, k=1)[1][0, 0] != 300\n"
+        "s.add(pts[:3] + 1)\n"
+        "assert (s.search_batch(pts[:3] + 1, k=1)[1][:, 0].numpy()\n"
+        "        == np.arange(300, 303)).all()\n"
         "loaded = {m.split('.')[0] for m in sys.modules\n"
         "          if sys.modules[m] is not None}\n"
         "assert not loaded & {'jax', 'instant_distance_tpu'}, loaded\n"
@@ -435,17 +454,11 @@ def _check_signatures():
             got = list(inspect.signature(getattr(port, attr)).parameters)
             assert [p for p in got if p != "device"] == want, \
                 (name, attr, got, want)
-    pts = np.zeros((40, 4), np.float32)
-    h = hnsw_from_arrays(pts, np.full((40, 16), -1, np.int32), [],
-                         SEARCH_CFG, device="cpu")
-    hmap = HnswMap(h.points, h.zero, h.layers, SEARCH_CFG, list(range(40)))
-    for call, item in (
-            (lambda: Hnsw.build(pts, CFG, backend="native", device="cpu"),
-             "§1 item 1"),
-            (lambda: HnswMap.build(pts, list(range(40)), CFG,
-                                   backend="native", device="cpu"),
-             "§1 item 1")):
-        with pytest.raises(NotImplementedError, match=item):
+    from instant_distance_tpu_torch.utils import serialize as tser
+
+    for call in (lambda: tser.dump_sharded(None, "x"),
+                 lambda: tser.load_sharded("x")):
+        with pytest.raises(NotImplementedError, match="§1 item 6"):
             call()
 
 
@@ -493,6 +506,7 @@ def test_build_and_search_match_jax():
     _check_signatures()
     check_packed_path(arrays, queries)
     check_construct(arrays, queries)
+    check_serving(arrays, queries)
 
     _check_k2_builds()
     _check_reverse_grouping()

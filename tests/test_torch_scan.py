@@ -25,6 +25,10 @@ share.
   candidates), distances within 1e-5 relative where ids agree.  The int32
   conversion of ``bucket_int``'s rank weights saturates as XLA's does; a
   batch of small queries against large points shows it.
+* The grouped selections of ``bucket_pack`` (``sel_group``,
+  ``sel_kgroup``) against the JAX ``_fused_int_packed_search_jit`` on the
+  same operands, rerank on and off, with and without a filter: ids
+  bit-exact, distances within 1e-6 relative.
 * Building blocks on random inputs: the four named metrics in their
   three batched forms within 1e-5 relative and 1e-5 absolute (the matmul
   forms lose the last bits of ``|q|^2 - 2 q.p + |p|^2`` to cancellation,
@@ -356,8 +360,65 @@ def _check_scan_index():
         small.search_batch(queries, filter_mask=np.ones(5, bool))
     with pytest.raises(ValueError, match="fused"):
         small.search_batch(queries, fused="tile", cb=256)
-    with pytest.raises(NotImplementedError, match="sel_group"):
-        small.search_batch(queries, fused="bucket_pack", cb=256, sel_group=2)
+    # the grouped selections reach the selection that _check_scan_grouped
+    # holds to the JAX function, and honour filters and tombstones
+    fresh = scan_from_points(pts, device="cpu")
+    codes_t, norms_r, sg = fresh._fused_int_arrays(PACK["cb"] * PACK["inner"])
+    for sel in (dict(sel_group=4), dict(sel_kgroup=2)):
+        got = port.search_batch(queries, k=10, filter_mask=mask, **PACK,
+                                **sel)[1].numpy()
+        assert np.all(ok[got[got >= 0]]), f"{sel}: a filtered id came back"
+        d, i = fresh.search_batch(queries, k=10, **PACK, **sel)
+        wd, wi = tscan._fused_int_packed_search(
+            torch.from_numpy(queries), codes_t, norms_r, sg, fresh.points,
+            None, ef=32, k=10, lsub=PACK["lsub"], cb=PACK["cb"], rerank=True,
+            **sel)
+        assert torch.equal(i, wi) and torch.equal(d, wd), sel
+
+
+#: Grouped selections of bucket_pack: (sel_group, sel_kgroup, filtered).
+#: At lsub 16, cb 256 and inner 2 the 2048 points give 128 key columns:
+#: 32 groups of 4 for sel_group, 64 og columns for sel_kgroup 2 (ef 32).
+GROUPED = ((4, 0, False), (0, 2, False), (0, 2, True), (4, 0, True))
+
+
+def _check_scan_grouped():
+    """``sel_group`` and ``sel_kgroup`` against JAX
+    ``_fused_int_packed_search_jit`` (its K1 in interpret mode) on the
+    same operands, with rerank on and off.  ``approx_min_k`` is exact on
+    XLA's CPU backend and the port selects with ``torch.topk``, so ids
+    must be bit-exact; distances within 1e-6 relative (the rerank's and
+    ``|q|^2``'s f32 sums run in another order)."""
+    rng = np.random.default_rng(13)
+    pts = rng.standard_normal((SN, KD)).astype(np.float32)
+    queries = rng.standard_normal((SQ, KD)).astype(np.float32)
+    mask = rng.random(SN) < 0.6
+    port = scan_from_points(pts, device="cpu")
+    lsub, cb, inner = PACK["lsub"], PACK["cb"], PACK["inner"]
+    codes_t, norms_r, sg = port._fused_int_arrays(cb * inner)
+    for sel_group, sel_kgroup, filtered in GROUPED:
+        for rerank in (True, False):
+            el = mask if filtered else None
+            kw = dict(ef=32, k=10, lsub=lsub, cb=cb, rerank=rerank,
+                      sel_group=sel_group, sel_kgroup=sel_kgroup)
+            want = jscan._fused_int_packed_search_jit(
+                jnp.asarray(queries), jnp.asarray(codes_t.numpy()),
+                jnp.asarray(norms_r.numpy()), jnp.asarray(sg.numpy()),
+                jnp.asarray(pts), None if el is None else jnp.asarray(el),
+                metric_name="sqeuclidean", qb=SQ, inner=inner,
+                interpret=True, **kw)
+            got = tscan._fused_int_packed_search(
+                torch.from_numpy(queries), codes_t, norms_r, sg,
+                port.points, None if el is None else torch.from_numpy(el),
+                **kw)
+            what = f"{sel_group=} {sel_kgroup=} {filtered=} {rerank=}"
+            np.testing.assert_array_equal(got[1].numpy(),
+                                          np.asarray(want[1]), err_msg=what)
+            np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                                       rtol=1e-6, atol=1e-6, err_msg=what)
+            if filtered:
+                ids = got[1].numpy()
+                assert mask[ids[ids >= 0]].all(), what
 
 
 #: ScanIndex fused modes at D=300 (cb small enough that 1024 points fill
@@ -552,6 +613,7 @@ def test_scan_path_matches_jax():
     _check_bucket_wrappers()
     _check_fused_operands()
     _check_scan_index()
+    _check_scan_grouped()
     _check_scan_index_modes()
     _check_int32_saturation()
     _check_metrics()
