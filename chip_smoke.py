@@ -88,6 +88,26 @@ against its plain torch version:
  13. sampled  — DEEP-shaped data (1M x 96), construct_sample_cols=262,144
                 with the split flag on (the repair in the commit), K1 on
                 the capped columns;
+     sharded  — after hnsw: ShardedHnsw.build of the 1M x 128 points on
+                four shards of the card (K1 every wave of every shard),
+                search_batch(ef=50) on the 8192-query batch, a filter and a
+                delete, dump and ShardedHnsw.load (equal bit for bit),
+                pack() and ShardedPackedHnsw.search_batch;
+     replicated — after packed: ReplicatedHnsw over the loaded index on
+                four slices equal to its search_batch bit for bit at B
+                8192 and 8190, ReplicatedPackedHnsw equal to
+                PackedHnsw.search_batch, ReplicatedScanIndex(fused=True)
+                (K2), and a ReplicatedHnsw on default_mesh();
+     sharded scan — ShardedScanIndex of the 1M x 128 points on four
+                shards: fused=True (K2) on the whole batch, the streamed
+                scan at 1024, dump and load (equal bit for bit);
+     sharded checkpoint — after checkpoint: 4 x 65,536 - 3 points (the
+                last shard padded): A, B stopped halfway, C resumed equal
+                to A bit for bit, the recall gate over all queries and over
+                the true neighbours in the last shard (K1);
+     distributed — a one-rank NCCL group through distributed_mesh: a
+                ShardedHnsw of 65,536 points there equal to the same build
+                on default_mesh(devices=[card]) bit for bit;
  14. launches — every kernel ran inside its paths (each path is driven
                 with the launch counts set to 0 just before it and read
                 just after).
@@ -161,6 +181,10 @@ NATIVE_N = 65_536
 #: The streaming path: slab rows that trigger a compaction, and the rows
 #: of each added chunk searched for themselves (read-your-writes).
 STREAM_REPACK, RYW_ROWS = 65_536, 1024
+#: The parallel paths: shards (or batch slices) on the one card, the
+#: checkpointed sharded build's points (its last shard holds 3 pad rows)
+#: and the one-rank NCCL mesh's build.
+SHARDS, SHARD_CKPT_N, DIST_N = 4, 4 * 65_536 - 3, 65_536
 
 #: Kernels whose product runs on the int8 tensor cores (K1 with K6; K2
 #: and K3, one template; K5): the build phase fails if their machine code
@@ -312,8 +336,10 @@ def _sass_check(build) -> list:
 #: batch (points padded to cb * inner); K2 in the 1M x 300 build's last
 #: wave (B=4096 against every point, padded to the build's cb) and the
 #: cosine "bucket" batch; K3 in the 300-d "bucket_pack" batch; K5 in the
-#: cosine "topt" batch.  The first case of each kernel is the one its
-#: JSON record reports.
+#: cosine "topt" batch; K1 in a wave of one shard of the sharded build,
+#: K2 in one shard's batch of the sharded scan and in one slice of the
+#: replicated scan.  The first case of each kernel is the one its JSON
+#: record reports.
 KERNEL_CASES = (
     ("scan batch", "fused_scan_bucket_int_packed", N_QUERIES, DIM,
      _padded(N_POINTS, 8192 * 2), 64, 8192, {}),
@@ -325,12 +351,18 @@ KERNEL_CASES = (
      {"groups": KGROUP_KW["sel_kgroup"]}),
     ("build wave", "fused_scan_bucket_int_packed", 4096, DIM,
      _padded(N_POINTS, 8192), 64, 8192, {}),
+    ("sharded build wave", "fused_scan_bucket_int_packed", 4096, DIM,
+     _padded(N_POINTS // SHARDS, 8192), 64, 8192, {}),
     ("build wave", "fused_scan_bucket", 4096, DIM300,
      _padded(N_POINTS, BUILD_CB), BUILD_LSUB, BUILD_CB, {"is_dot": False}),
     ("slice", "fused_scan_bucket", 1000, DIM300, 65536, 32, 4096,
      {"is_dot": True}),
     ("bucket batch", "fused_scan_bucket", N_QUERIES, DIM300,
      _padded(N_POINTS, SCAN_CB), 32, SCAN_CB, {"is_dot": True}),
+    ("sharded scan batch", "fused_scan_bucket", N_QUERIES, DIM,
+     _padded(N_POINTS // SHARDS, SCAN_CB), 32, SCAN_CB, {"is_dot": False}),
+    ("replicated scan slice", "fused_scan_bucket", N_QUERIES // SHARDS, DIM,
+     _padded(N_POINTS, SCAN_CB), 32, SCAN_CB, {"is_dot": False}),
     ("scan batch", "fused_scan_bucket_int", N_QUERIES, DIM300,
      _padded(N_POINTS, 8192 * 2), 64, 8192, {}),
     ("slice", "fused_scan_bucket_int", 1000, DIM300, 65536, 64, 8192, {}),
@@ -1342,6 +1374,331 @@ def phase_cli(idt_root, tmp, fname, pts):
            f"[{CARD}; {HOST}]")
 
 
+# ---------------------------------------------------------------------------
+# the parallel wrappers: ShardedHnsw, its checkpoint, ShardedScanIndex, the
+# Replicated* forms and a one-rank NCCL mesh (SHARDS shards on the card)
+# ---------------------------------------------------------------------------
+
+def _shard_mesh(dev):
+    from instant_distance_tpu_torch.parallel.mesh import default_mesh
+
+    return default_mesh(devices=[dev] * SHARDS)
+
+
+def _same_sharded(torch, a, b) -> bool:
+    """Two ShardedHnsw hold the same shards bit for bit."""
+    pairs = [*zip(a.zero, b.zero), *zip(a.gids, b.gids),
+             *zip(a.points, b.points)]
+    pairs += [p for la, lb in zip(a.layers, b.layers) for p in zip(la, lb)]
+    return (len(a.layers) == len(b.layers)
+            and all(torch.equal(x, y) for x, y in pairs))
+
+
+def _serve_batch(torch, launches, path, index, queries, gt, kw):
+    """One sharded or replicated search at the whole batch: checked,
+    recall blocks, timed.  Returns (result, recall blocks, seconds)."""
+    nq = N_BLOCKS * BLOCK
+
+    def run():
+        d, i = index.search_batch(queries, **kw)
+        _check_results(torch, d, i, queries.shape[0], path)
+        recs = _recall_blocks(i[:nq].cpu(), gt)
+        t = _wall_s(torch, lambda: index.search_batch(queries, **kw), 3)
+        return (d, i), recs, t
+
+    out, recs, t = launches.run(path, run)
+    _phase(path, f"{type(index).__name__}.search_batch({kw}) batch "
+           f"{queries.shape[0]}: {queries.shape[0] / t:.1f} qps "
+           f"({t * 1e3:.2f} ms/batch), recall@10 blocks "
+           f"{[round(r, 4) for r in recs]}, launches "
+           f"{ {k: v for k, v in launches.paths[path].items() if v} } "
+           f"[{CARD}]")
+    _check_recall(recs, path)
+    return out, recs, t
+
+
+def phase_sharded(torch, idt, launches, pts, queries, gt, dev):
+    """ShardedHnsw.build of the 1M x 128 points on SHARDS shards of the
+    card (K1 every wave of every shard), search_batch at ef 50 on the whole
+    batch, a filter and a delete, dump and load, then the packed form."""
+    mesh = _shard_mesh(dev)
+    cfg = idt.Config(seed=3, m=32, wave_size=4096, ef_search=50)
+    t_wall = time.perf_counter()
+    index, build_s, peak = _build_path(
+        torch, launches, "sharded",
+        lambda progress: idt.ShardedHnsw.build(pts, cfg, mesh=mesh,
+                                               progress=progress))
+    launches.need("sharded", ["fused_scan_bucket_int_packed"])
+    _phase("sharded", f"ShardedHnsw.build {N_POINTS}x{DIM} m=32 wave 4096 "
+           f"on {SHARDS} shards of one card: {build_s:.1f} s "
+           f"({N_POINTS / build_s:.1f} pts/s), peak memory {peak:.2f} GiB, "
+           f"reverse drops {index.reverse_drops}; launches "
+           f"{ {k: v for k, v in launches.paths['sharded'].items() if v} } "
+           f"[{CARD}]")
+    kw = dict(k=K, ef=50)
+    (d, g), _, _ = _serve_batch(torch, launches, "sharded search", index,
+                                queries, gt, kw)
+    # a filter: even global ids only
+    even = torch.arange(N_POINTS, device=dev) % 2 == 0
+    _, fg = index.search_batch(queries[:BLOCK], filter_mask=even, **kw)
+    if not (bool((fg >= 0).all()) and bool((fg % 2 == 0).all())):
+        raise AssertionError("sharded: the filter let an odd id through")
+    with tempfile.TemporaryDirectory() as tmp:
+        fname = os.path.join(tmp, "sharded.npz")
+        t0 = time.perf_counter()
+        index.dump(fname)
+        dump_s = time.perf_counter() - t0
+        size_gb = os.path.getsize(fname) / 1e9
+        t0 = time.perf_counter()
+        loaded = idt.ShardedHnsw.load(fname, mesh=mesh)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    ld, lg = loaded.search_batch(queries, **kw)
+    if not (_same_sharded(torch, loaded, index) and torch.equal(ld, d)
+            and torch.equal(lg, g)):
+        raise AssertionError("sharded: the loaded index differs")
+    # a delete: every first hit of the first block, on the loaded copy
+    victims = torch.unique(g[:BLOCK, 0]).cpu().numpy()
+    loaded.delete(victims)
+    _, dg = loaded.search_batch(queries[:BLOCK], **kw)
+    if np.isin(dg.cpu().numpy(), victims).any():
+        raise AssertionError("sharded: a deleted id came back")
+    _phase("sharded", f"filter (even ids) honoured; dump {size_gb:.2f} GB "
+           f"in {dump_s:.2f} s, load in {load_s:.2f} s, results equal bit "
+           f"for bit; delete of {len(victims)} ids honoured")
+    del loaded
+    t0 = time.perf_counter()
+    packed = index.pack()
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    _phase("sharded packed", f"pack(pack_links=32): {pack_s:.2f} s")
+    _serve_batch(torch, launches, "sharded packed", packed, queries, gt, kw)
+    launches.need("sharded packed", [], absent=list(KERNELS))
+    _phase("sharded", f"wall {time.perf_counter() - t_wall:.1f} s")
+    del packed, index
+    torch.cuda.empty_cache()
+
+
+def phase_sharded_checkpoint(torch, idt, launches, pts, queries, dev):
+    """SHARD_CKPT_N points on SHARDS shards, the last one padded: build A,
+    build B with a checkpoint every CKPT_EVERY waves stopped halfway,
+    build C resumed from B's file equal to A bit for bit; the recall gate
+    over all queries and over the true neighbours in the last shard."""
+    from instant_distance_tpu_torch.parallel import sharded
+
+    mesh = _shard_mesh(dev)
+    cfg = idt.Config(seed=3, m=32, wave_size=4096, ef_search=50)
+    sub = pts[:SHARD_CKPT_N]
+    t_wall = time.perf_counter()
+    a, build_s, peak = _build_path(
+        torch, launches, "sharded checkpoint A",
+        lambda progress: idt.ShardedHnsw.build(sub, cfg, mesh=mesh,
+                                               progress=progress))
+    launches.need("sharded checkpoint A", ["fused_scan_bucket_int_packed"])
+
+    def stop(done, total, phase):
+        if done >= total // 2:
+            raise _Stop(done)
+
+    saves, save = [], sharded._save_sharded_ckpt
+
+    def timed_save(*args):
+        t0 = time.perf_counter()
+        save(*args)
+        saves.append(time.perf_counter() - t0)
+
+    sharded._save_sharded_ckpt = timed_save
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            fname = os.path.join(tmp, "sharded.ckpt.npz")
+            try:
+                launches.run("sharded checkpoint B", lambda: idt.ShardedHnsw
+                             .build(sub, cfg, mesh=mesh, progress=stop,
+                                    checkpoint=fname,
+                                    checkpoint_every=CKPT_EVERY))
+                raise AssertionError("sharded checkpoint: B was not stopped")
+            except _Stop:
+                pass
+            b_saves, size_mb = len(saves), os.path.getsize(fname) / 1e6
+            c, c_s, _ = _build_path(
+                torch, launches, "sharded checkpoint C",
+                lambda progress: idt.ShardedHnsw.build(
+                    sub, cfg, mesh=mesh, progress=progress, checkpoint=fname,
+                    checkpoint_every=CKPT_EVERY))
+            left = os.path.exists(fname)
+    finally:
+        sharded._save_sharded_ckpt = save
+    launches.need("sharded checkpoint C", ["fused_scan_bucket_int_packed"])
+    if left:
+        raise AssertionError("sharded checkpoint: the file outlived the build")
+    if not _same_sharded(torch, a, c):
+        raise AssertionError("sharded checkpoint: resumed C differs from A")
+    nq = N_BLOCKS * BLOCK
+    gt = idt.BruteForce(sub).search_batch(queries[:nq], K)[1].cpu().numpy()
+    found = launches.run("sharded checkpoint search", lambda: c.search_batch(
+        queries[:nq], k=K, ef=50)[1].cpu().numpy())
+    recs = _recall_blocks(found, gt)
+    last_gids = c.gids[-1]
+    pads = int((last_gids < 0).sum())
+    in_last = np.isin(gt, last_gids.cpu().numpy())
+    last = float(sum(np.isin(gt[r][in_last[r]], found[r]).sum()
+                     for r in range(nq)) / in_last.sum())
+    _phase("sharded checkpoint", f"{SHARD_CKPT_N} points, {pads} pad rows "
+           f"in the last shard: A {build_s:.1f} s "
+           f"({SHARD_CKPT_N / build_s:.1f} pts/s, peak {peak:.2f} GiB); B "
+           f"stopped at half; file {size_mb:.1f} MB; saves every "
+           f"{CKPT_EVERY} waves, seconds each: B "
+           f"{[round(x, 3) for x in saves[:b_saves]]}, C "
+           f"{[round(x, 3) for x in saves[b_saves:]]}; C resumed in "
+           f"{c_s:.1f} s equal to A bit for bit, file removed; recall@10 "
+           f"blocks {[round(r, 4) for r in recs]}, over the last shard's "
+           f"true neighbours {last:.4f}; wall "
+           f"{time.perf_counter() - t_wall:.1f} s")
+    _check_recall(recs, "sharded checkpoint")
+    _check_recall([last], "sharded checkpoint last shard")
+    del a, c
+    torch.cuda.empty_cache()
+
+
+def phase_sharded_scan(torch, idt, launches, pts, queries, gt, dev):
+    """ShardedScanIndex of the 1M x 128 points on SHARDS shards: fused=True
+    (K2 on every shard) on the whole batch, the streamed scan at a batch
+    of BLOCK, dump and load."""
+    mesh = _shard_mesh(dev)
+    t0 = time.perf_counter()
+    scan = idt.ShardedScanIndex(pts, mesh=mesh)
+    torch.cuda.synchronize()
+    _phase("sharded scan", f"ShardedScanIndex {N_POINTS}x{DIM} on {SHARDS} "
+           f"shards: {time.perf_counter() - t0:.2f} s")
+    kw = dict(k=K, ef=32, fused=True)
+    (d, i), _, _ = _serve_batch(torch, launches, "sharded scan", scan,
+                                queries, gt, kw)
+    launches.need("sharded scan", ["fused_scan_bucket"],
+                  absent=["fused_scan_bucket_int_packed"])
+    nq = N_BLOCKS * BLOCK
+
+    def streamed():
+        found = torch.cat([scan.search_batch(queries[b:b + BLOCK], k=K)[1]
+                           for b in range(0, nq, BLOCK)])
+        t = _wall_s(torch, lambda: scan.search_batch(queries[:BLOCK], k=K),
+                    3)
+        return _recall_blocks(found.cpu(), gt), t
+
+    recs, t = launches.run("sharded scan streamed", streamed)
+    launches.need("sharded scan streamed", [], absent=list(KERNELS))
+    _phase("sharded scan streamed", f"search_batch(k={K}) batch {BLOCK}: "
+           f"{BLOCK / t:.1f} qps ({t * 1e3:.2f} ms/batch), recall@10 blocks "
+           f"{[round(r, 4) for r in recs]} [{CARD}]")
+    _check_recall(recs, "sharded scan streamed")
+    with tempfile.TemporaryDirectory() as tmp:
+        fname = os.path.join(tmp, "scan.npz")
+        scan.dump(fname)
+        loaded = idt.ShardedScanIndex.load(fname, mesh=mesh)
+    ld, li = loaded.search_batch(queries, **kw)
+    if not (torch.equal(ld, d) and torch.equal(li, i)):
+        raise AssertionError("sharded scan: the loaded index differs")
+    _phase("sharded scan", "dump, load: fused results equal bit for bit")
+    del scan, loaded
+    torch.cuda.empty_cache()
+
+
+def phase_replicated(torch, idt, launches, index, packed, pts, queries, gt,
+                     dev):
+    """The replicated forms on SHARDS slices of the card: ReplicatedHnsw
+    over the hnsw phase's (loaded) index against its own search_batch at
+    the whole batch and two queries fewer, ReplicatedPackedHnsw against
+    PackedHnsw.search_batch, ReplicatedScanIndex(fused=True) (K2), and a
+    ReplicatedHnsw on default_mesh() (every visible card)."""
+    from instant_distance_tpu_torch.parallel.mesh import default_mesh
+
+    mesh = _shard_mesh(dev)
+    kw = dict(k=K, ef=50)
+    rep = idt.ReplicatedHnsw(index, mesh)
+    for b in (queries.shape[0], queries.shape[0] - 2):
+        got = launches.run("replicated", lambda: rep.search_batch(
+            queries[:b], **kw))
+        want = index.search_batch(queries[:b], **kw)
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"replicated: ReplicatedHnsw differs from "
+                                 f"the index at B={b}")
+    t_rep = _wall_s(torch, lambda: rep.search_batch(queries, **kw), 3)
+    t_one = _wall_s(torch, lambda: index.search_batch(queries, **kw), 3)
+    everyone = default_mesh()
+    got = idt.ReplicatedHnsw(index, everyone).search_batch(queries, **kw)
+    want = index.search_batch(queries, **kw)
+    if not all(torch.equal(x, y) for x, y in zip(got, want)):
+        raise AssertionError("replicated: default_mesh() differs")
+    _phase("replicated", f"ReplicatedHnsw on {SHARDS} slices equal to "
+           f"search_batch bit for bit at B={queries.shape[0]} and "
+           f"B={queries.shape[0] - 2}; {queries.shape[0] / t_rep:.1f} qps "
+           f"against {queries.shape[0] / t_one:.1f} for the index alone; "
+           f"default_mesh() = {len(everyone.devices)} card(s), equal [{CARD}]")
+    rep = idt.ReplicatedPackedHnsw(packed, mesh)
+    got = launches.run("replicated packed",
+                       lambda: rep.search_batch(queries, **kw))
+    launches.need("replicated packed", [], absent=list(KERNELS))
+    want = packed.search_batch(queries, **kw)
+    if not all(torch.equal(x, y) for x, y in zip(got, want)):
+        raise AssertionError("replicated: ReplicatedPackedHnsw differs from "
+                             "PackedHnsw.search_batch")
+    _phase("replicated", "ReplicatedPackedHnsw equal to "
+           "PackedHnsw.search_batch bit for bit")
+    scan = idt.ScanIndex(pts)
+    _serve_batch(torch, launches, "replicated scan",
+                 idt.ReplicatedScanIndex(scan, mesh), queries, gt,
+                 dict(k=K, ef=32, fused=True))
+    launches.need("replicated scan", ["fused_scan_bucket"],
+                  absent=["fused_scan_bucket_int_packed"])
+    del scan, rep
+    torch.cuda.empty_cache()
+
+
+def phase_distributed(torch, idt, launches, pts, queries, dev):
+    """A one-rank NCCL group on the card through distributed_mesh: a
+    ShardedHnsw of DIST_N points there (its merge through all_gather)
+    equals the same build on default_mesh(devices=[dev]) bit for bit."""
+    import socket
+
+    import torch.distributed as dist
+    from instant_distance_tpu_torch.parallel.mesh import (default_mesh,
+                                                          distributed_mesh)
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cfg = idt.Config(seed=3, m=32, wave_size=4096, ef_search=50)
+    sub = pts[:DIST_N]
+    kw = dict(k=K, ef=50)
+    t0 = time.perf_counter()
+    mesh = distributed_mesh(f"tcp://127.0.0.1:{port}", 1, 0, devices=[dev])
+    try:
+        backend = dist.get_backend()
+        join_s = time.perf_counter() - t0
+
+        def run():
+            index = idt.ShardedHnsw.build(sub, cfg, mesh=mesh)
+            return index, index.search_batch(queries[:BLOCK], **kw)
+
+        (a, (da, ga)), a_s, _ = _timed(torch, lambda: launches.run(
+            "distributed", run))
+        launches.need("distributed", ["fused_scan_bucket_int_packed"])
+    finally:
+        dist.destroy_process_group()
+    b = idt.ShardedHnsw.build(sub, cfg, mesh=default_mesh(devices=[dev]))
+    db, gb = b.search_batch(queries[:BLOCK], **kw)
+    if not (_same_sharded(torch, a, b) and torch.equal(da, db)
+            and torch.equal(ga, gb)):
+        raise AssertionError("distributed: the one-rank mesh's build or "
+                             "search differs from default_mesh's")
+    _phase("distributed", f"{backend} group of 1 rank on "
+           f"tcp://127.0.0.1:{port}, init_process_group {join_s:.2f} s (the "
+           f"communicator comes up at the first collective); ShardedHnsw "
+           f"{DIST_N}x{DIM} built and searched there in {a_s:.2f} s, equal "
+           f"to default_mesh(devices=[{dev}]) bit for bit; group destroyed")
+    del a, b
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--build-n", type=int, default=N_POINTS,
@@ -1428,6 +1785,7 @@ def main(argv=None) -> int:
            f"{[round(r, 4) for r in recs]}")
     _check_recall(recs, "hnsw")
     phase_hybrid(torch, idt, launches, index, queries)
+    phase_sharded(torch, idt, launches, pts, queries, gt, dev)
 
     # -- 6. the packed serving flow on that index ------------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -1448,8 +1806,11 @@ def main(argv=None) -> int:
     del index
     packed, records["walk_search"] = _packed_path(
         torch, idt, launches, "packed", served, queries, plain_route=True)
+    phase_replicated(torch, idt, launches, served, packed, pts, queries, gt,
+                     dev)
     del packed, served
     torch.cuda.empty_cache()
+    phase_sharded_scan(torch, idt, launches, pts, queries, gt, dev)
 
     # -- 10-12. add (and streaming), beam and checkpoint on that data ------
     with tempfile.TemporaryDirectory() as tmp:
@@ -1460,6 +1821,8 @@ def main(argv=None) -> int:
         phase_streaming(torch, idt, launches, base_file, pts, queries)
     phase_beam(torch, idt, launches, pts, queries)
     phase_checkpoint(torch, idt, launches, pts, queries)
+    phase_sharded_checkpoint(torch, idt, launches, pts, queries, dev)
+    phase_distributed(torch, idt, launches, pts, queries, dev)
 
     # -- the host engine's build, served on the card; the CLI --------------
     with tempfile.TemporaryDirectory() as tmp:

@@ -1,4 +1,4 @@
-"""instant-distance-tpu on PyTorch: HNSW build and search on one NVIDIA GPU.
+"""instant-distance-tpu on PyTorch: HNSW build and search on NVIDIA GPUs.
 
 A port of ``instant_distance_tpu`` (JAX/XLA/Pallas) to PyTorch, with the
 int8 scan kernels and the packed graph walk written by hand in CUDA for
@@ -41,6 +41,11 @@ __all__ = [
     "PackedHnsw",
     "HybridIndex",
     "StreamingHnsw",
+    "ShardedHnsw",
+    "ShardedScanIndex",
+    "ReplicatedHnsw",
+    "ReplicatedPackedHnsw",
+    "ReplicatedScanIndex",
     "DEFAULT_M",
     "INVALID",
 ]
@@ -72,4 +77,17 @@ def __getattr__(name):
         from .models.streaming import StreamingHnsw
 
         return StreamingHnsw
+    if name == "ShardedHnsw":
+        from .parallel.sharded import ShardedHnsw
+
+        return ShardedHnsw
+    if name == "ShardedScanIndex":
+        from .parallel.scan import ShardedScanIndex
+
+        return ShardedScanIndex
+    if name in ("ReplicatedHnsw", "ReplicatedPackedHnsw",
+                "ReplicatedScanIndex"):
+        from .parallel import replicated
+
+        return getattr(replicated, name)
     raise AttributeError(name)

@@ -220,21 +220,29 @@ def _plan_of(cfg, n: int, d: int, allow_split: bool = True) -> _Plan:
         split=allow_split and can_split and bool(split))
 
 
-def _quantize_for_scan(points, metric_name):
+def _quantize_for_scan(points, metric_name, real=None):
     """Wave-search operands over the build's points (pid order), in the
     JAX ``_quantize_for_scan(fused=True)``'s order ``(codes_t, scales,
     norms_r)``: for the packed-key kernel ONE global scale ``sg``
     (:func:`pack_operands`), for K2 per-point scales [1, Npad] with the
-    metric's norms (:func:`bucket_operands`)."""
+    metric's norms (:func:`bucket_operands`).  ``real`` (bool [N] or
+    None): the rows that are points; the others (a padded shard's pad
+    rows) stay out of ``sg`` and get +inf norms, so no scan proposes
+    them."""
     if _use_pack(metric_name, points.shape[1]):
-        codes_t, norms_r, sg = pack_operands(points, _FUSED_PACK_CB)
+        codes_t, norms_r, sg = pack_operands(points, _FUSED_PACK_CB, real)
         return codes_t, sg, norms_r
     codes, scales = quantize_points(points)
     deq = codes.float() * scales[:, None]
     variant = ("l2" if metric_name in ("sqeuclidean", "euclidean")
                else metric_name)
-    return bucket_operands(codes, scales, (deq * deq).sum(1), _FUSED_CB,
-                           variant)
+    codes_t, scales_r, norms_r = bucket_operands(
+        codes, scales, (deq * deq).sum(1), _FUSED_CB, variant)
+    if real is not None:
+        keep = torch.nn.functional.pad(real, (0, norms_r.shape[1]
+                                              - real.shape[0]))
+        norms_r = torch.where(keep[None, :], norms_r, torch.inf)
+    return codes_t, scales_r, norms_r
 
 
 def _flat_operands(points):
@@ -246,16 +254,18 @@ def _flat_operands(points):
     return codes, scales, (deq * deq).sum(1)
 
 
-def _scan_operands(points, plan: _Plan):
+def _scan_operands(points, plan: _Plan, real=None):
     """``(main, flat)`` wave-search operands: ``main`` for the plan's
     own mode (None for beam), ``flat`` the streamed-scan operands of the
     first ``exact_prefix`` points that a scan_fused build hands to the
-    waves whose prefix is still below it (None without a prefix)."""
+    waves whose prefix is still below it (None without a prefix).
+    ``real`` as in :func:`_quantize_for_scan` (the streamed scan takes
+    it per wave instead)."""
     if not plan.search_mode.startswith("scan"):
         return None, None
     if plan.search_mode == "scan":
         return _flat_operands(points), None
-    main = _quantize_for_scan(points, plan.metric_name)
+    main = _quantize_for_scan(points, plan.metric_name, real)
     flat = None
     if plan.exact_prefix > 0:
         flat = _flat_operands(points[:min(points.shape[0],
@@ -362,11 +372,13 @@ def _dedup_sorted(cd, cp):
     return torch.where(dup, torch.inf, cd), torch.where(dup, -1, cp)
 
 
-def _scan_pack(q, filled: int, codes_t, sg, norms_r, efc: int):
+def _scan_pack(q, filled: int, codes_t, sg, norms_r, efc: int, qrows=None):
     """K1 wave search: packed keys of the prefix, exact top-efc keys ->
-    candidate pids [W, <= efc], -1 for groups with no eligible point."""
+    candidate pids [W, <= efc], -1 for groups with no eligible point.
+    ``qrows`` (bool [W] or None) are the lanes that set the wave's
+    shared query scale."""
     lsub, cb = _FUSED_PACK_LSUB, _FUSED_PACK_CB
-    qc, qs = quantize_batch(q)
+    qc, qs = quantize_batch(q, qrows)
     denom = 2.0 * qs * sg
     col = torch.arange(norms_r.shape[1], device=q.device)[None, :]
     w2 = pack_w2(norms_r, denom, col < filled, lsub=lsub, cb=cb,
@@ -395,14 +407,16 @@ def _scan_bucket(q, filled: int, codes_t, scales_r, norms_r, efc: int,
 
 
 def _scan_stream(q, filled: int, codes, scales, norms, efc: int,
-                 metric_name):
+                 metric_name, real=None):
     """Streamed-scan wave search (JAX construct.py:461-486): the exact
-    top-efc of the int8 scores of pids below ``filled``; ``codes`` may
-    cover only the exact prefix."""
+    top-efc of the int8 scores of pids below ``filled`` (and ``real``,
+    when given); ``codes`` may cover only the exact prefix."""
     from ..models.scan import scan_candidates
 
     npts = codes.shape[0]
     prefix = torch.arange(npts, device=q.device) < filled
+    if real is not None:
+        prefix = prefix & real[:npts]
     _, cand_p = scan_candidates(
         q, codes, scales, norms, prefix,
         metric_name=(metric_name if isinstance(metric_name, str)
@@ -499,7 +513,7 @@ def search_select_core(wave_pids, filled: int, points, ops, adj=None,
                        efc: int, m: int, m0: int, links: int, heuristic,
                        max_iter_factor: int = 8, expand: int = 1,
                        hop_repair: int = 0, return_pool: bool = False,
-                       pd_dtype="bfloat16"):
+                       pd_dtype="bfloat16", real=None):
     """Wave search + forward selection (lib.rs:447-473): each wave
     point's selected forward neighbours [W, m0], -1/inf for padded
     lanes.  ``filled`` is the first pid of the wave: pids below it are
@@ -510,7 +524,10 @@ def search_select_core(wave_pids, filled: int, points, ops, adj=None,
     beam; ``links`` caps the columns of ``adj`` a walk or an extension
     reads (m0 at layer 0, m above).  ``return_pool`` returns the
     reranked, peer-merged pool instead of selecting
-    (:func:`repair_commit_core` selects)."""
+    (:func:`repair_commit_core` selects).  ``real`` (bool [N] or None)
+    marks the rows that are points: the streamed scan proposes no other
+    row (the fused scans' operands already exclude them) and only real
+    lanes set K1's shared query scale."""
     metric = resolve(metric_name)
     w = wave_pids.shape[0]
     wvalid = wave_pids >= 0
@@ -519,9 +536,11 @@ def search_select_core(wave_pids, filled: int, points, ops, adj=None,
     if search_mode.startswith("scan"):
         with _span("build.scan"):
             if search_mode == "scan":
-                cand_p = _scan_stream(q, filled, *ops, efc, metric_name)
+                cand_p = _scan_stream(q, filled, *ops, efc, metric_name,
+                                      real)
             elif _use_pack(metric_name, q.shape[1]):
-                cand_p = _scan_pack(q, filled, *ops, efc)
+                qrows = None if real is None else real[wave_pids.clamp(min=0)]
+                cand_p = _scan_pack(q, filled, *ops, efc, qrows)
             else:
                 cand_p = _scan_bucket(q, filled, *ops, efc, metric_name)
         if search_mode == "scan_fused" and cand_p.shape[1] < efc:
@@ -662,10 +681,11 @@ def _warn_reverse_drops(n_dropped: int, pend_cap: int,
 
 
 def _insert_wave(adj, adjd, wave, s: int, points, uppers, ops, flat_ops,
-                 plan: _Plan, links: int):
+                 plan: _Plan, links: int, real=None):
     """Search, select and commit one wave of pids (``wave``, -1 padded,
     lowest pid ``s`` in lane 0) in place; returns the reverse-edge
-    additions dropped, as a 0-d tensor."""
+    additions dropped, as a 0-d tensor.  ``real``: see
+    :func:`search_select_core`."""
     if (plan.search_mode == "scan_fused" and flat_ops is not None
             and s < plan.exact_prefix):
         mode_w, wops = "scan", flat_ops
@@ -677,7 +697,8 @@ def _insert_wave(adj, adjd, wave, s: int, points, uppers, ops, flat_ops,
     search = dict(common, search_mode=mode_w,
                   efc=plan.efc_scan if scan else plan.efc_beam,
                   m=plan.m, links=links,
-                  max_iter_factor=plan.max_iter_factor, expand=plan.expand)
+                  max_iter_factor=plan.max_iter_factor, expand=plan.expand,
+                  real=real)
     commit = dict(common, pend_cap=plan.pend_cap, rev_rounds=plan.rev_rounds)
     if plan.split and plan.sampling and scan:
         # the JAX split programs' order: pool first, repair in the commit
@@ -702,6 +723,59 @@ def _wave_of(s: int, e: int, cap: int, dev):
     wave = np.full(_bucket(e - s, cap), -1, np.int32)
     wave[:e - s] = np.arange(s, e, dtype=np.int32)
     return torch.as_tensor(wave, device=dev)
+
+
+class _WaveGraph:
+    """One graph's wave-loop state: its points in pid order and their scan
+    operands, the adjacency [N+1, m0] and distance cache (row N is the
+    padded-lane sink, both updated in place), the upper snapshots
+    completed so far (top first) and the reverse-edge drops (a 0-d
+    tensor).  ``real`` (bool [N] or None) marks the rows that are points
+    (see :func:`search_select_core`)."""
+
+    def __init__(self, pts, ops, flat_ops, adj, adjd, drops, layers=(),
+                 real=None):
+        self.pts, self.ops, self.flat_ops = pts, ops, flat_ops
+        self.adj, self.adjd, self.drops = adj, adjd, drops
+        self.layers = list(layers)
+        self.real = real
+
+    def insert(self, s: int, e: int, cap: int, plan: _Plan, links: int):
+        """Insert the wave of pids [s, e) (``cap`` lanes at most)."""
+        self.drops += _insert_wave(
+            self.adj, self.adjd, _wave_of(s, e, cap, self.pts.device), s,
+            self.pts, self.layers, self.ops, self.flat_ops, plan, links,
+            real=self.real)
+
+
+def _run_waves(graphs, plan: _Plan, ranges, wave_size: int, *,
+               resume=(-1, -1), progress=None, total: int = 0,
+               weight: int = 1, save=None, save_every: int = 64) -> None:
+    """The layer-by-layer wave schedule over ``graphs`` in lockstep: each
+    wave is inserted into every graph before the next one starts, and
+    each layer's snapshot is taken from every graph when it completes.
+    Waves up to ``resume`` = (layer index, first pid) were inserted
+    before (a checkpoint's state).  ``progress(done, total, phase)``
+    counts ``weight`` points for each point of a wave, and ``save(li,
+    s)`` runs after every ``save_every`` waves."""
+    m, m0 = plan.m, plan.m0
+    done = waves = 0
+    for li, (layer, start, end) in enumerate(ranges):
+        links = m0 if layer == 0 else m
+        for s, e in _wave_schedule(start, end, wave_size):
+            done += (e - s) * weight
+            if (li, s) <= resume:
+                continue           # inserted in the checkpointed state
+            for g in graphs:
+                g.insert(s, e, wave_size, plan, links)
+            waves += 1
+            if progress is not None:
+                progress(done, total, f"layer {layer}")
+            if save is not None and waves % save_every == 0:
+                save(li, s)
+        if layer > 0 and li >= resume[0]:
+            for g in graphs:
+                g.layers.append(g.adj[:end, :m].clone())
 
 
 class BuiltGraph:
@@ -776,12 +850,11 @@ def _adjd_from(arr, tag, dtype, dev):
     return torch.from_numpy(np.asarray(arr)).to(dev, dtype)
 
 
-def _save_ckpt(path: str, key: str, seed: int, adj, adjd, layers, sizes,
-               m: int, li: int, s: int, drops) -> None:
-    """Write the wave state (adjacency, distance cache, the upper
-    snapshots so far, the last wave's coordinates) in the JAX package's
-    npz fields: ``stacked`` is its lane-packed snapshot buffer, each
-    snapshot at ``offsets[li]`` rows padded to the pack factor."""
+def _stacked_of(layers, sizes, m: int):
+    """The JAX package's lane-packed snapshot buffer of the upper
+    snapshots so far: ``(stacked [rows / pack, m * pack], offsets [16],
+    write_off)``, each snapshot at ``offsets[li]`` rows padded to the
+    pack factor."""
     pack = _pack_factor(m)
 
     def pal(x):
@@ -795,18 +868,31 @@ def _save_ckpt(path: str, key: str, seed: int, adj, adjd, layers, sizes,
         stacked[write_off:write_off + snap.shape[0]] = snap.cpu().numpy()
         offsets[i] = write_off
         write_off += pal(snap.shape[0])
+    return stacked.reshape(cap_rows // pack, m * pack), offsets, write_off
+
+
+def _adjd_np(adjd):
+    """A distance cache as numpy and its dtype tag (bfloat16 bit-viewed
+    as uint16)."""
     if adjd.dtype == torch.bfloat16:
-        adjd_np, tag = adjd.view(torch.int16).cpu().numpy().view(
-            np.uint16), "bfloat16"
-    else:
-        adjd_np = adjd.cpu().numpy()
-        tag = str(adjd_np.dtype)
+        return adjd.view(torch.int16).cpu().numpy().view(np.uint16), \
+            "bfloat16"
+    adjd_np = adjd.cpu().numpy()
+    return adjd_np, str(adjd_np.dtype)
+
+
+def _save_ckpt(path: str, key: str, seed: int, adj, adjd, layers, sizes,
+               m: int, li: int, s: int, drops) -> None:
+    """Write the wave state (adjacency, distance cache, the upper
+    snapshots so far, the last wave's coordinates) in the JAX package's
+    npz fields (:func:`_stacked_of`)."""
+    stacked, offsets, write_off = _stacked_of(layers, sizes, m)
+    adjd_np, tag = _adjd_np(adjd)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         np.savez(f, key=np.array(key), seed=np.uint64(seed),
                  adj=adj.cpu().numpy(), adjd=adjd_np,
-                 adjd_dtype=np.array(tag),
-                 stacked=stacked.reshape(cap_rows // pack, m * pack),
+                 adjd_dtype=np.array(tag), stacked=stacked,
                  offsets=offsets, write_off=write_off, li=li, s=s,
                  drops=int(drops))
     os.replace(tmp, path)
@@ -903,31 +989,20 @@ def build_graph(points, config: Config, progress=None, device=None,
         layers = _snapshots_from(state, ranges, m, dev)
         resume = (state["li"], state["s"])
     del state
-    done = waves = 0
-    for li, (layer, start, end) in enumerate(ranges):
-        links = m0 if layer == 0 else m
-        for s, e in _wave_schedule(start, end, cfg.wave_size):
-            if (li, s) <= resume:
-                done += e - s
-                continue           # inserted in the checkpointed state
-            drops += _insert_wave(adj, adjd, _wave_of(s, e, cfg.wave_size,
-                                                      dev),
-                                  s, pts, layers, ops, flat_ops, plan,
-                                  links)
-            done += e - s
-            waves += 1
-            if progress is not None:
-                progress(done, n, f"layer {layer}")
-            if checkpoint is not None and waves % checkpoint_every == 0:
-                with _span("build.checkpoint"):
-                    _save_ckpt(checkpoint, key, seed, adj, adjd, layers,
-                               sizes, m, li, s, drops)
-        if layer > 0 and li >= resume[0]:
-            layers.append(adj[:end, :m].clone())
+    g = _WaveGraph(pts, ops, flat_ops, adj, adjd, drops, layers)
+    save = None
+    if checkpoint is not None:
+        def save(li, s):
+            with _span("build.checkpoint"):
+                _save_ckpt(checkpoint, key, seed, g.adj, g.adjd, g.layers,
+                           sizes, m, li, s, g.drops)
+    _run_waves([g], plan, ranges, cfg.wave_size, resume=resume,
+               progress=progress, total=n, save=save,
+               save_every=checkpoint_every)
     if checkpoint is not None and os.path.exists(checkpoint):
         os.remove(checkpoint)     # build complete
-    layers.reverse()  # as the reference stores them: layers[l-1] = level l
-    reverse_drops = int(drops)
+    layers = g.layers[::-1]  # as the reference stores them: layers[l-1] = l
+    reverse_drops = int(g.drops)
     _warn_reverse_drops(reverse_drops, plan.pend_cap, plan.rev_rounds)
     return BuiltGraph(pts, adj[:n], layers, ids, cfg,
                       reverse_drops=reverse_drops)

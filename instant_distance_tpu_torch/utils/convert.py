@@ -5,10 +5,10 @@ device (a CPU tensor is a request for the CPU), anything else (numpy,
 lists) goes to the ``device`` named, and without one to the CUDA card.
 Where there is no card, such input raises instead of running on the CPU.
 
-``hnsw_from_arrays`` and ``scan_from_points`` carry state built by the
-JAX package over to this one, as numpy arrays
-(``np.asarray(index.points / .zero / .layers)``), so both packages can
-search the very same graph.
+``hnsw_from_arrays``, ``sharded_from_arrays`` and ``scan_from_points``
+carry state built by the JAX package over to this one, as numpy arrays
+(``np.asarray(index.points / .zero / .layers / .gids)``), so both
+packages can search the very same graph.
 """
 
 from __future__ import annotations
@@ -75,3 +75,16 @@ def scan_from_points(points, device=None, **kw):
     from ..models.scan import ScanIndex
 
     return ScanIndex(as_tensor(points, device, torch.float32), **kw)
+
+
+def sharded_from_arrays(points, zero, layers, gids, config, mesh):
+    """A :class:`~instant_distance_tpu_torch.parallel.sharded.ShardedHnsw`
+    over a JAX ``ShardedHnsw``'s arrays (leading global shard axis:
+    points [S, n_s, D], zero [S, n_s, m0], ``layers[l-1]`` [S, end_l, m]
+    for level l, gids [S, n_s]) on ``mesh``, whose size must be S."""
+    from ..parallel.sharded import ShardedHnsw
+
+    return ShardedHnsw(np.asarray(points, np.float32),
+                       np.asarray(zero, np.int32),
+                       [np.asarray(l, np.int32) for l in layers],
+                       np.asarray(gids, np.int32), config, mesh)

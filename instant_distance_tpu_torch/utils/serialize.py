@@ -280,16 +280,67 @@ def load_bincode(fname: str, dims: int = REFERENCE_DIMS, m: int = 32,
 # sharded npz
 # ---------------------------------------------------------------------------
 
+_MAGIC_SHARDED = "instant-distance-tpu/sharded-v1"
+
+
 def dump_sharded(index, fname: str) -> None:
-    raise NotImplementedError(
-        "sharded indices are not ported yet (ROADMAP.md §1 item 6, the "
-        "parallel/* wrappers)")
+    """Persist a ShardedHnsw: all shards' graph arrays in one npz, with a
+    leading shard axis (the JAX package's ``sharded-v1`` file, so either
+    package loads the other's).  A rank of a distributed mesh holds only
+    its own shards, so only a one-process mesh dumps."""
+    if index.mesh.world > 1:
+        raise ValueError("dump needs every shard in this process")
+    points, zero, layers, gids = index.arrays()
+    arrays = {
+        "magic": np.array(_MAGIC_SHARDED),
+        "config": np.array(_config_to_json(index.config)),
+        "points": points,                                 # [S, n_s, D]
+        "zero": zero,                                     # [S, n_s, m0]
+        "gids": gids,                                     # [S, n_s]
+        "n_layers": np.array(len(layers), np.int64),
+        "reverse_drops": np.array(int(index.reverse_drops), np.int64),
+    }
+    for i, layer in enumerate(layers):
+        arrays[f"layer_{i}"] = layer
+    if index.values is not None:
+        arrays["values"] = np.array(json.dumps(list(index.values)))
+    if index._alive is not None:
+        arrays["alive"] = _np(index._alive, bool)
+    with open(fname, "wb") as f:
+        np.savez(f, **arrays)
 
 
 def load_sharded(fname: str, mesh=None):
-    raise NotImplementedError(
-        "sharded indices are not ported yet (ROADMAP.md §1 item 6, the "
-        "parallel/* wrappers)")
+    """Load a ShardedHnsw dump onto ``mesh`` (default: the first S CUDA
+    cards, S the dump's shard count).  The shard count is baked into the
+    arrays: re-sharding is a rebuild, and a mesh of another size
+    raises."""
+    from ..parallel.mesh import default_mesh
+    from ..parallel.sharded import ShardedHnsw
+    from .convert import as_tensor
+
+    with np.load(fname, allow_pickle=False) as z:
+        if str(z["magic"]) != _MAGIC_SHARDED:
+            raise ValueError(
+                f"{fname}: not a sharded instant-distance-tpu index")
+        cfg = _config_from_json(str(z["config"]))
+        points = z["points"]
+        s = points.shape[0]
+        if mesh is None:
+            mesh = default_mesh(s)
+        elif mesh.size != s:
+            raise ValueError(
+                f"dump has {s} shards but mesh has {mesh.size} devices; "
+                "re-sharding requires a rebuild")
+        layers = [z[f"layer_{i}"] for i in range(int(z["n_layers"]))]
+        values = (json.loads(str(z["values"]))
+                  if "values" in z.files else None)
+        idx = ShardedHnsw(points, z["zero"], layers, z["gids"], cfg, mesh,
+                          values=values)
+        if "alive" in z.files:
+            idx._alive = as_tensor(z["alive"], mesh.first, torch.bool)
+        idx.reverse_drops = int(z["reverse_drops"])
+        return idx
 
 
 # ---------------------------------------------------------------------------

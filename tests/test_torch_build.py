@@ -275,7 +275,8 @@ def _check_runs_without_jax():
     add to it, graph search, kernel-path scans, a dump, load, pack and
     packed search (both routes), and a native build served by
     ``HybridIndex`` and ``StreamingHnsw`` (with the CLI, validation and
-    profiling modules imported) succeed with ``jax`` and
+    profiling modules imported), and a 4-shard ``ShardedHnsw`` on the CPU
+    with the ``parallel`` modules imported, succeed with ``jax`` and
     ``instant_distance_tpu`` blocked, and so do the dataset and recall
     helpers that chip_smoke.py imports."""
     code = (
@@ -324,6 +325,13 @@ def _check_runs_without_jax():
         "s.add(pts[:3] + 1)\n"
         "assert (s.search_batch(pts[:3] + 1, k=1)[1][:, 0].numpy()\n"
         "        == np.arange(300, 303)).all()\n"
+        "from instant_distance_tpu_torch.parallel import (mesh, replicated,\n"
+        "    scan, sharded)\n"
+        "sh = t.ShardedHnsw.build(pts, t.Config(seed=1, m=4, wave_size=32),\n"
+        "    mesh=mesh.default_mesh(devices=['cpu'] * 4))\n"
+        "assert sh.n_shards == 4 and len(sh) == 300\n"
+        "assert (sh.search_batch(pts[:4], k=1)[1][:, 0].numpy()\n"
+        "        == np.arange(4)).all()\n"
         "loaded = {m.split('.')[0] for m in sys.modules\n"
         "          if sys.modules[m] is not None}\n"
         "assert not loaded & {'jax', 'instant_distance_tpu'}, loaded\n"
@@ -399,7 +407,12 @@ def _check_card_default():
     if torch.cuda.is_available():
         assert as_tensor(pts).device.type == "cuda"
         return
+    from instant_distance_tpu_torch.parallel.mesh import default_mesh
+
     entry_points = (
+        lambda: default_mesh(),
+        lambda: tpkg.ShardedHnsw.build(pts, CFG),
+        lambda: tpkg.ShardedScanIndex(pts),
         lambda: as_tensor(pts),
         lambda: Hnsw.build(pts, CFG),
         lambda: HnswMap.build(pts, list(range(40)), CFG),
@@ -433,12 +446,28 @@ def _check_from_index_tombstones(arrays):
 
 
 def _check_signatures():
-    """Every public method of every class both packages export takes the
-    reference's parameter names; the port adds ``device`` and nothing
-    else.  What the port lacks raises NotImplementedError naming its
-    ROADMAP.md item, never TypeError."""
-    for name in sorted(set(jpkg.__all__) & set(tpkg.__all__)):
-        ref, port = getattr(jpkg, name), getattr(tpkg, name)
+    """Every public method of every class both packages export (the
+    ``Sharded*``/``Replicated*`` wrappers among them) and of
+    ``ShardedPackedHnsw`` takes the reference's parameter names; the port
+    adds ``device`` and nothing else.  The mesh helpers and the sharded
+    serializers take the reference's parameters first (``distributed_
+    mesh`` adds the ``devices`` a process holds).  No NotImplementedError
+    is left in the port."""
+    from instant_distance_tpu.parallel import mesh as jmesh
+    from instant_distance_tpu.parallel import sharded as jsharded
+    from instant_distance_tpu.utils import serialize as jser
+    from instant_distance_tpu_torch.parallel import mesh as tmesh
+    from instant_distance_tpu_torch.parallel import sharded as tsharded
+    from instant_distance_tpu_torch.utils import serialize as tser
+
+    names = sorted(set(jpkg.__all__) & set(tpkg.__all__))
+    assert {"ShardedHnsw", "ShardedScanIndex", "ReplicatedHnsw",
+            "ReplicatedPackedHnsw", "ReplicatedScanIndex"} <= set(names)
+    pairs = [(name, getattr(jpkg, name), getattr(tpkg, name))
+             for name in names]
+    pairs.append(("ShardedPackedHnsw", jsharded.ShardedPackedHnsw,
+                  tsharded.ShardedPackedHnsw))
+    for name, ref, port in pairs:
         if not inspect.isclass(ref):
             continue
         for attr, member in vars(ref).items():
@@ -454,12 +483,19 @@ def _check_signatures():
             got = list(inspect.signature(getattr(port, attr)).parameters)
             assert [p for p in got if p != "device"] == want, \
                 (name, attr, got, want)
-    from instant_distance_tpu_torch.utils import serialize as tser
-
-    for call in (lambda: tser.dump_sharded(None, "x"),
-                 lambda: tser.load_sharded("x")):
-        with pytest.raises(NotImplementedError, match="§1 item 6"):
-            call()
+    for ref, port in ((jmesh.default_mesh, tmesh.default_mesh),
+                      (jmesh.distributed_mesh, tmesh.distributed_mesh),
+                      (jser.dump_sharded, tser.dump_sharded),
+                      (jser.load_sharded, tser.load_sharded)):
+        want = list(inspect.signature(ref).parameters)
+        got = list(inspect.signature(port).parameters)
+        assert got[:len(want)] == want, (port.__name__, got, want)
+    root = os.path.dirname(tpkg.__file__)
+    for dirpath, _, files in os.walk(root):
+        for fname in files:
+            if fname.endswith(".py"):
+                with open(os.path.join(dirpath, fname)) as f:
+                    assert "NotImplementedError" not in f.read(), fname
 
 
 def _check_empty_batch_width(arrays):

@@ -9,7 +9,9 @@ Tolerance: none.  K1, K3 and K6 are integer kernels; K2, K4 and K5
 round every f32 operation in the plain version's order, so distances
 and ids are bit-exact too.  Each case also checks that the wrapper
 counted one launch.  A callable metric's row blocks agree with one block
-within 1e-6 relative.  One test item, for the reason given in
+within 1e-6 relative.  The parallel wrappers run on two shards of the
+card against two CPU shards (ids on >= 99% of entries).  One test item,
+for the reason given in
 tests/test_torch_scan.py; the K4 and K6 checks live in
 tests/test_torch_packed.py (``check_card``).
 """
@@ -248,9 +250,42 @@ def _check_callable_blocks(cuda):
                                rtol=1e-4, atol=1e-4)
 
 
+def _check_parallel_card(cuda):
+    """The parallel wrappers on two shards of the card against the same
+    calls on two CPU shards: ``ShardedScanIndex(fused=True)`` (K2 on the
+    card) and a small ``ShardedHnsw`` build and search (K1 in its waves);
+    ids equal on >= 99% of entries."""
+    from instant_distance_tpu_torch import Config
+    from instant_distance_tpu_torch.parallel.mesh import default_mesh
+    from instant_distance_tpu_torch.parallel.scan import ShardedScanIndex
+    from instant_distance_tpu_torch.parallel.sharded import ShardedHnsw
+
+    rng = np.random.default_rng(3)
+    pts = rng.random((10_237, 32), dtype=np.float32)
+    queries = rng.random((300, 32), dtype=np.float32)
+    card, cpu = default_mesh(devices=[cuda] * 2), \
+        default_mesh(devices=["cpu"] * 2)
+    before = tsk.launches["fused_scan_bucket"]
+    got = ShardedScanIndex(pts, mesh=card).search_batch(queries, fused=True)
+    assert tsk.launches["fused_scan_bucket"] == before + 2
+    want = ShardedScanIndex(pts, mesh=cpu).search_batch(queries, fused=True)
+    same = (got[1].cpu() == want[1]).float().mean().item()
+    assert got[1].device.type == "cuda" and same >= 0.99, same
+    cfg = Config(seed=3, m=8, wave_size=256, ef_search=32)
+    before = tsk.launches["fused_scan_bucket_int_packed"]
+    built = ShardedHnsw.build(pts[:4093], cfg, mesh=card)
+    assert tsk.launches["fused_scan_bucket_int_packed"] > before
+    got = built.search_batch(queries, k=10)[1]
+    want = ShardedHnsw.build(pts[:4093], cfg, mesh=cpu).search_batch(
+        queries, k=10)[1]
+    same = (got.cpu() == want).float().mean().item()
+    assert same >= 0.99, same
+
+
 def test_kernel_matches_plain(cuda):
     _check_packed(cuda)
     _check_bucket(cuda)
     _check_malformed(cuda)
     _check_callable_blocks(cuda)
+    _check_parallel_card(cuda)
     check_packed_kernels(cuda)

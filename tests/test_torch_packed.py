@@ -38,7 +38,10 @@ from instant_distance_tpu_torch.ops import packed as tpk
 from instant_distance_tpu_torch.ops import scan_kernel as tsk
 from instant_distance_tpu_torch.ops import walk_kernel as twk
 from instant_distance_tpu_torch.utils import serialize as tser
-from instant_distance_tpu_torch.utils.convert import hnsw_from_arrays
+from instant_distance_tpu_torch.parallel.mesh import default_mesh
+from instant_distance_tpu_torch.parallel.sharded import ShardedHnsw
+from instant_distance_tpu_torch.utils.convert import (hnsw_from_arrays,
+                                                       sharded_from_arrays)
 
 try:  # absent on the card's machine; check_card needs none of it
     import jax.numpy as jnp
@@ -317,17 +320,22 @@ def _check_serialize(arrays, jax_packed, tmp):
         assert got.values == want.values
         assert (got.metric_name, got.chunk) == (want.metric_name,
                                                  want.chunk)
-    # a load with no device goes to the card, and raises without one
+    # a load with no device goes to the card, and raises without one; so
+    # does a sharded file with no mesh
     if not torch.cuda.is_available():
         fh = os.path.join(tmp, "h.npz")
         JaxHnsw(points, zero, layers, jconfig.Config(**cfg_kw)).dump(fh)
+        fsh = os.path.join(tmp, "sharded.npz")
+        sharded_from_arrays(
+            points[:64].reshape(2, 32, -1), zero[:64].reshape(2, 32, -1),
+            [], np.arange(64, dtype=np.int32).reshape(2, 32),
+            tconfig.Config(**cfg_kw),
+            default_mesh(devices=["cpu"] * 2)).dump(fsh)
         for load, fname in ((Hnsw.load, fh), (tser.load, fh),
                             (HnswMap.load, fb), (PackedHnsw.load, fp),
-                            (ScanIndex.load, fs)):
+                            (ScanIndex.load, fs), (ShardedHnsw.load, fsh)):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 load(fname)
-    with pytest.raises(NotImplementedError, match="parallel"):
-        tser.dump_sharded(None, f)
 
 
 def check_cpu(arrays, queries):

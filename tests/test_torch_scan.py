@@ -37,6 +37,11 @@ share.
   and queries and Alg. 3 selection bit-exact; exact rerank ids
   bit-exact; brute-force ids on at least 99% of entries.
 
+The parallel wrappers (``ShardedHnsw``, ``ShardedScanIndex``, the
+``Replicated*`` forms, the sharded files and a two-process gloo mesh)
+are checked by ``tests/test_torch_parallel.py``, whose ``check_cpu``
+runs in this item.
+
 The checks run as one test item: each item the suite collects shifts
 how pytest-xdist splits the whole suite into chunks, and one item keeps
 that split as it is without the port (the reasoning is in CHANGES.md).
@@ -63,6 +68,7 @@ from instant_distance_tpu_torch.ops import packed as tpacked
 from instant_distance_tpu_torch.ops import scan_kernel as tsk
 from instant_distance_tpu_torch.ops import select as tsel
 from instant_distance_tpu_torch.utils.convert import scan_from_points
+from test_torch_parallel import check_cpu as check_parallel
 
 # Tiny shapes: more threads only add synchronisation under a parallel run.
 torch.set_num_threads(1)
@@ -621,3 +627,4 @@ def test_scan_path_matches_jax():
     _check_rerank()
     _check_select_simple()
     _check_bruteforce()
+    check_parallel()
