@@ -108,6 +108,25 @@ against its plain torch version:
      distributed — a one-rank NCCL group through distributed_mesh: a
                 ShardedHnsw of 65,536 points there equal to the same build
                 on default_mesh(devices=[card]) bit for bit;
+     oracle   — after phase 3: utils/refimpl.RefHnsw of 700 x 8 points
+                (tests/test_beam_vs_oracle.py's data and default config)
+                built on the host; ops/beam.hnsw_search on the card over
+                its graph returns RefHnsw.search's pid lists exactly; the
+                card's wave build of the same points reaches the oracle
+                graph's recall@10 less 0.02;
+     examples — the four examples of instant_distance_tpu_torch/examples
+                as python -m subprocesses on the card, all at once beside
+                the oracle: the lines tests/test_examples.py checks of the
+                JAX examples, then translate again from its dump;
+     ladder   — last: BASELINE.md's GIST1M rung, load_config("gist1m")
+                (1M x 960 and its queries): ScanIndex bucket_pack at lsub
+                16 (K1 at D = 960) and 32 (K3), K1 and K3 held on the
+                scan's operands and K2 at a build wave's shape, Hnsw.build
+                (K2), search_batch, the packed form's memory arithmetic,
+                then PackedHnsw.from_index and search_batch_kernel (K4, at
+                500,000 points when the packed form of 1M would not fit)
+                and K4 held at that call; recall@10 of each route over one
+                block of 8192 queries;
  14. launches — every kernel ran inside its paths (each path is driven
                 with the launch counts set to 0 just before it and read
                 just after).
@@ -136,6 +155,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -185,6 +205,28 @@ STREAM_REPACK, RYW_ROWS = 65_536, 1024
 #: checkpointed sharded build's points (its last shard holds 3 pad rows)
 #: and the one-rank NCCL mesh's build.
 SHARDS, SHARD_CKPT_N, DIST_N = 4, 4 * 65_536 - 3, 65_536
+#: The oracle path (tests/test_beam_vs_oracle.py:60-76): points, width,
+#: seed, ef and queries, at the default Config; recall over more queries
+#: for the wave build's gate, which may trail the oracle graph's by the
+#: slack (one is sequential, the other built in waves).
+ORACLE_N, ORACLE_DIM, ORACLE_SEED, ORACLE_EF, ORACLE_Q = 700, 8, 1234, 64, 8
+ORACLE_RECALL_Q, ORACLE_SLACK = 1024, 0.02
+#: The examples: module, arguments, lines the output must hold (those
+#: tests/test_examples.py checks of the JAX examples).
+EXAMPLES = (
+    ("colors", [], ["red"]),
+    ("translate", ["word7_en"], ["fr: word7_fr", "it: word7_it"]),
+    ("filtered_serving", [], ["category-0 only:", "after delete:"]),
+    ("streaming_ingest", [], ["compacted: n=5600 pending=0", "doc-7"]),
+)
+#: The ladder path: ScanIndex bucket_pack at cb 8192, so that lsub 16
+#: stays 16 (D * lsub = 15,360: K1) and lsub 32 turns it into bucket_int
+#: (K3); the query rows a block of K4's plain version; the device memory
+#: kept free for the packed searches; the packed route's points where
+#: the packed form of 1M points would not fit.
+LADDER_SCAN_KW = dict(k=K, fused="bucket_pack", cb=8192, inner=2, ef=32)
+LADDER_ROWS, LADDER_HEADROOM = 1024, 4_000_000_000
+LADDER_PACKED_FALLBACK = 500_000
 
 #: Kernels whose product runs on the int8 tensor cores (K1 with K6; K2
 #: and K3, one template; K5): the build phase fails if their machine code
@@ -493,6 +535,53 @@ def _int_mm_ms(torch, qc, codes_t, iters: int) -> float:
     return _cuda_ms(torch, lib, iters)
 
 
+def _hold_kernel(torch, tsk, label, kernel, rows, shared, kw,
+                 library: bool = False):
+    """One kernel at one call: bit-exact against its plain version (over
+    blocks of query rows), both timed with CUDA events in turns, its
+    TOP/s and its share of the bound printed; with ``library``,
+    torch._int_mm on the same product.  Returns its record."""
+    b, d = rows[0].shape
+    n = shared[-1].shape[1]
+    got = _call(tsk, kernel, rows, shared, kw)
+    want = _plain_by_rows(torch, tsk, kernel, rows, shared, kw)
+    torch.cuda.synchronize()
+    err = _max_err(torch, got, want)
+    if err != 0:
+        raise AssertionError(f"{kernel} {label}: kernel differs from "
+                             f"plain by {err}")
+    bound_ms, bound_by = _bound(b, d, n, rows, shared, got)
+    del got, want
+    iters = 3 if b * n > 1 << 32 else 10
+
+    def kern():
+        _call(tsk, kernel, rows, shared, kw)
+
+    def plain():
+        _plain_by_rows(torch, tsk, kernel, rows, shared, kw)
+
+    # in turns: plain, kernel, kernel, plain
+    p1, k1, k2, p2 = (_cuda_ms(torch, f, iters)
+                      for f in (plain, kern, kern, plain))
+    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    library_ms = (_int_mm_ms(torch, rows[0], shared[1], iters) if library
+                  else None)
+    dp4a_ms = DP4A_MS.get((kernel, label))
+    _phase("kernels", f"{kernel} {label} B={b} D={d} N={n} "
+           f"{kw}: bit-exact; kernel {ms:.4f} ms "
+           f"({2 * b * n * d / ms / 1e9:.1f} TOP/s, "
+           f"{bound_ms / ms:.2%} of the bound), plain {plain_ms:.4f} ms, "
+           f"bound {bound_ms:.4f} ms ({bound_by})"
+           + ("" if library_ms is None else
+              f", torch._int_mm {library_ms:.4f} ms")
+           + ("" if dp4a_ms is None else
+              f"; on the __dp4a tile {dp4a_ms:.2f} ms "
+              f"({dp4a_ms / ms:.1f}x)")
+           + f" [{CARD}]")
+    return dict(case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
 def phase_kernels(torch, tsk, dev):
     """Phase 3.  Returns {kernel: record of its first case}."""
     records = {}
@@ -500,46 +589,12 @@ def phase_kernels(torch, tsk, dev):
     for label, kernel, b, d, n, lsub, cb, opts in KERNEL_CASES:
         rows, shared, kw = _operands(torch, tsk, dev, kernel, b, d, n, lsub,
                                      cb, opts)
-        got = _call(tsk, kernel, rows, shared, kw)
-        want = _plain_by_rows(torch, tsk, kernel, rows, shared, kw)
-        torch.cuda.synchronize()
-        err = _max_err(torch, got, want)
-        if err != 0:
-            raise AssertionError(f"{kernel} {label}: kernel differs from "
-                                 f"plain by {err}")
-        bound_ms, bound_by = _bound(b, d, n, rows, shared, got)
-        del got, want
-        iters = 3 if b * n > 1 << 32 else 10
-
-        def kern():
-            _call(tsk, kernel, rows, shared, kw)
-
-        def plain():
-            _plain_by_rows(torch, tsk, kernel, rows, shared, kw)
-
-        # in turns: plain, kernel, kernel, plain
-        p1, k1, k2, p2 = (_cuda_ms(torch, f, iters)
-                          for f in (plain, kern, kern, plain))
-        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
         # the yardstick of K6's record case (torch._int_mm needs D % 8 == 0)
-        library_ms = (_int_mm_ms(torch, rows[0], shared[1], iters)
-                      if opts.get("probe") == "mm" and kernel not in records
-                      else None)
-        times[(kernel, label)] = ms
-        dp4a_ms = DP4A_MS.get((kernel, label))
-        _phase("kernels", f"{kernel} {label} B={b} D={d} N={n} "
-               f"{ {**kw, **opts} }: bit-exact; kernel {ms:.4f} ms "
-               f"({2 * b * n * d / ms / 1e9:.1f} TOP/s, "
-               f"{bound_ms / ms:.2%} of the bound), plain {plain_ms:.4f} ms, "
-               f"bound {bound_ms:.4f} ms ({bound_by})"
-               + ("" if library_ms is None else
-                  f", torch._int_mm {library_ms:.4f} ms")
-               + ("" if dp4a_ms is None else
-                  f"; on the __dp4a tile {dp4a_ms:.2f} ms "
-                  f"({dp4a_ms / ms:.1f}x)"))
-        records.setdefault(kernel, dict(
-            case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
+        rec = _hold_kernel(
+            torch, tsk, label, kernel, rows, shared, kw,
+            library=opts.get("probe") == "mm" and kernel not in records)
+        times[(kernel, label)] = rec["ms"]
+        records.setdefault(kernel, rec)
         del rows, shared
         torch.cuda.empty_cache()
     mm, mn, full = (times["fused_scan_probe", f"scan batch {p}"]
@@ -594,12 +649,29 @@ def _walk_bound(n_exp: int, n_scored: int, k: int, d: int, b: int,
             "operations" if t_ops > t_bytes else "bytes")
 
 
-def check_walk(torch, wk, what: str, args, kw, iters: int = 3):
-    """K4 against its plain version on the same operands: bit-exact,
-    both timed in turns.  Returns its record."""
+def _walk_plain(torch, wk, args, kw, rows: int = 0, return_work=False):
+    """K4's plain version over blocks of ``rows`` queries (all at once
+    for 0), concatenated; with ``return_work``, also the expansions and
+    valid neighbours summed over the blocks."""
+    b = args[0].shape[0]
+    step = rows or b
+    outs = [wk.walk_search_plain(*(a[s:s + step] for a in args[:3]),
+                                 *args[3:], **kw, return_work=return_work)
+            for s in range(0, b, step)]
+    out = tuple(torch.cat(x) for x in zip(*(o[:2] for o in outs)))
+    if return_work:
+        out += tuple(sum(o[i] for o in outs) for i in (2, 3))
+    return out
+
+
+def check_walk(torch, wk, what: str, args, kw, iters: int = 3,
+               rows: int = 0):
+    """K4 against its plain version on the same operands (the plain
+    version over blocks of ``rows`` queries when given): bit-exact, both
+    timed in turns.  Returns its record."""
     got = wk.walk_search(*args, **kw)
-    *want, n_exp, n_scored = wk.walk_search_plain(*args, **kw,
-                                                  return_work=True)
+    *want, n_exp, n_scored = _walk_plain(torch, wk, args, kw, rows,
+                                         return_work=True)
     torch.cuda.synchronize()
     err = _max_err(torch, got, tuple(want))
     if err != 0:
@@ -608,12 +680,13 @@ def check_walk(torch, wk, what: str, args, kw, iters: int = 3):
     b, d = args[0].shape
     k = args[3].shape[1]
     bound_ms, bound_by = _walk_bound(n_exp, n_scored, k, d, b, kw["ef"])
+    del got, want
 
     def kern():
         wk.walk_search(*args, **kw)
 
     def plain():
-        wk.walk_search_plain(*args, **kw)
+        _walk_plain(torch, wk, args, kw, rows)
 
     p1, k1, k2, p2 = (_cuda_ms(torch, f, iters)
                       for f in (plain, kern, kern, plain))
@@ -621,8 +694,9 @@ def check_walk(torch, wk, what: str, args, kw, iters: int = 3):
     _phase("kernels", f"walk_search {what} B={b} D={d} {kw}: bit-exact; "
            f"{n_exp} expansions, {n_scored} valid neighbours "
            f"({n_scored / max(1, n_exp * k):.4f} of the slots); kernel "
-           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-           f"({bound_by})")
+           f"{ms:.4f} ms ({bound_ms / ms:.2%} of the bound), plain "
+           f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
+           f"[{CARD}]")
     return dict(case=what, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
@@ -1098,6 +1172,339 @@ def phase_sampled(torch, idt, launches, dev):
     _phase("sampled", f"wall {time.perf_counter() - t0:.1f} s")
     del index, pts, queries
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the last modules: the RefHnsw oracle, the examples and the dataset ladder
+# ---------------------------------------------------------------------------
+
+def phase_oracle(torch, idt, launches, dev):
+    """The sequential oracle (``utils/refimpl.RefHnsw``) built on the host
+    at tests/test_beam_vs_oracle.py:60-76's data and config; the port's
+    batched ``hnsw_search`` on the card over that graph must return the
+    oracle's pid lists exactly (distances within 1e-5 relative).  The
+    same points built by the card's waves must reach the oracle graph's
+    recall@10, less ORACLE_SLACK."""
+    from instant_distance_tpu_torch.ops.beam import hnsw_search
+    from instant_distance_tpu_torch.ops.distance import resolve
+    from instant_distance_tpu_torch.utils.metrics import recall_at_k
+    from instant_distance_tpu_torch.utils.refimpl import RefHnsw
+
+    rng = np.random.default_rng(ORACLE_SEED)
+    pts = rng.standard_normal((ORACLE_N, ORACLE_DIM)).astype(np.float32)
+    queries = rng.standard_normal((ORACLE_Q, ORACLE_DIM)).astype(np.float32)
+    more = np.random.default_rng(ORACLE_SEED + 1).standard_normal(
+        (ORACLE_RECALL_Q, ORACLE_DIM)).astype(np.float32)
+    cfg = idt.Config(seed=ORACLE_SEED, metric="sqeuclidean")
+    t0 = time.perf_counter()
+    ref = RefHnsw(pts, cfg)
+    ref_s = time.perf_counter() - t0
+
+    def search(q):
+        d, p = hnsw_search(
+            torch.from_numpy(q).to(dev), torch.from_numpy(ref.zero).to(dev),
+            tuple(torch.from_numpy(a).to(dev) for a in reversed(ref.layers)),
+            torch.from_numpy(ref.points).to(dev), resolve(cfg.metric),
+            ef=ORACLE_EF, m=cfg.m, zero_links=cfg.m0)
+        return d.cpu().numpy(), p.cpu().numpy()
+
+    d, p = launches.run("oracle search", lambda: search(queries))
+    for i, q in enumerate(queries):
+        oracle = ref.search(q, ef=ORACLE_EF)
+        if p[i, :len(oracle)].tolist() != [pid for _, pid in oracle]:
+            raise AssertionError(f"oracle: query {i}'s pids differ from "
+                                 "RefHnsw.search's")
+        np.testing.assert_allclose(
+            d[i, :len(oracle)], np.array([x for x, _ in oracle], np.float32),
+            rtol=1e-5, err_msg=f"oracle: query {i}")
+    ref_rec = recall_at_k(search(more)[1][:, :K], idt.BruteForce(
+        ref.points, device=dev).search_batch(more, K)[1].cpu().numpy(), K)
+    (index, _), build_s, _ = _build_path(
+        torch, launches, "oracle wave build",
+        lambda progress: idt.Hnsw.build(pts, cfg, device=dev))
+    launches.need("oracle wave build", ["fused_scan_bucket_int_packed"])
+    wave_rec = recall_at_k(
+        index.search_batch(more, k=K, ef=ORACLE_EF)[1].cpu().numpy(),
+        idt.BruteForce(index.points).search_batch(more, K)[1].cpu().numpy(),
+        K)
+    _phase("oracle", f"RefHnsw {ORACLE_N}x{ORACLE_DIM} (M {cfg.m}, "
+           f"ef_construction {cfg.ef_construction}, {len(ref.layers)} upper "
+           f"layers) on the host in {ref_s:.1f} s; hnsw_search ef "
+           f"{ORACLE_EF} on the card over its graph: {ORACLE_Q} queries' "
+           f"pid lists equal RefHnsw.search's, distances within 1e-5; "
+           f"recall@10 over {ORACLE_RECALL_Q} queries: oracle graph "
+           f"{ref_rec:.4f}, the card's wave build ({build_s:.2f} s) "
+           f"{wave_rec:.4f}")
+    if wave_rec < ref_rec - ORACLE_SLACK:
+        raise AssertionError(f"oracle: the wave build's recall {wave_rec} "
+                             f"< the oracle graph's {ref_rec} - "
+                             f"{ORACLE_SLACK}")
+
+
+class _ExampleRun:
+    """One example as a subprocess, its output in a file; a thread waits
+    for it and notes when it ended, so its wall time is its own while
+    the smoke does other work."""
+
+    def __init__(self, argv, log, cwd, env):
+        self.out = open(log, "w+")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(argv, stdout=self.out,
+                                     stderr=subprocess.STDOUT, text=True,
+                                     cwd=cwd, env=env)
+        self.t1 = None
+        self.watcher = threading.Thread(target=self._watch, daemon=True)
+        self.watcher.start()
+
+    def _watch(self):
+        self.proc.wait()
+        self.t1 = time.perf_counter()
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.out.close()
+
+
+def start_examples(idt_root, tmp):
+    """Start the port's four examples as a user runs them (``python -m``,
+    the default device: the card), all at once; returns what
+    :func:`phase_examples` waits for."""
+    env = dict(os.environ, PYTHONPATH=idt_root)
+    index = os.path.join(tmp, "translate.idx.npz")
+
+    def start(module, args):
+        argv = [sys.executable, "-m",
+                f"instant_distance_tpu_torch.examples.{module}", *args]
+        if module == "translate":
+            argv += ["--index", index]
+        return _ExampleRun(argv, os.path.join(tmp, "-".join([module, *args])
+                                              + ".log"), idt_root, env)
+
+    return start, {m: start(m, a) for m, a, _ in EXAMPLES}
+
+
+def _wait_examples(runs, want) -> dict:
+    """Wait for every run; check its exit code and that its output holds
+    ``want[name]``.  Returns {name: (output, seconds)}."""
+    deadline = time.perf_counter() + 600
+    results = {}
+    for name, run in runs.items():
+        run.watcher.join(max(0.0, deadline - time.perf_counter()))
+        if run.t1 is None:
+            raise AssertionError(f"example {name}: still running after "
+                                 "600 s")
+        run.out.seek(0)
+        text = run.out.read()
+        missing = [w for w in want[name] if w not in text]
+        if run.proc.returncode != 0 or missing:
+            raise AssertionError(f"example {name}: exit "
+                                 f"{run.proc.returncode}, missing {missing}"
+                                 f"\n{text[-3000:]}")
+        results[name] = (text, run.t1 - run.t0)
+    return results
+
+
+def stop_examples(started) -> None:
+    """Kill whatever of :func:`start_examples`' runs still runs."""
+    for run in started[1].values():
+        run.stop()
+
+
+def phase_examples(started) -> None:
+    """The four examples (started by :func:`start_examples`) end with exit
+    code 0 and print the lines tests/test_examples.py checks of the JAX
+    examples (colors exactly ``red``); then translate runs again and
+    loads the first run's dump (it builds nothing)."""
+    start, runs = started
+    try:
+        want = {m: w for m, _, w in EXAMPLES}
+        results = _wait_examples(runs, want)
+        again = "translate word9_en"
+        runs[again] = start("translate", ["word9_en"])
+        text, secs = _wait_examples({again: runs[again]},
+                                    {again: ["word9"]})[again]
+    finally:
+        stop_examples(started)
+    if results["colors"][0].strip() != "red":
+        raise AssertionError(f"example colors: {results['colors'][0]!r}")
+    if "building index" in text:
+        raise AssertionError("example translate: the second run rebuilt "
+                             f"the index\n{text[-2000:]}")
+    for module, (out, secs_m) in results.items():
+        lines = [next(ln.strip() for ln in out.splitlines() if w in ln)
+                 for w in want[module]]
+        _phase("examples", f"{module}: exit 0 in {secs_m:.1f} s; "
+               + " | ".join(lines))
+    _phase("examples", f"translate word9_en again, loading the dump: exit 0 "
+           f"in {secs:.1f} s; "
+           + next(ln.strip() for ln in text.splitlines() if "word9" in ln)
+           + f" [{CARD}; {HOST}]")
+
+
+def _ladder_recall(found, truth) -> float:
+    from instant_distance_tpu_torch.utils.metrics import recall_at_k
+
+    return recall_at_k(np.asarray(found.cpu()), truth, K)
+
+
+def phase_ladder(torch, idt, tsk, launches, dev):
+    """BASELINE.md's GIST1M rung at full size (``load_config("gist1m")``:
+    1M x 960 synthetic clustered points and 10,000 queries), the first
+    N_QUERIES queries as one block: ScanIndex bucket_pack at lsub 16 (K1
+    at D = 960) and 32 (K3), Hnsw.build (K2 every wave), search_batch,
+    PackedHnsw.from_index and search_batch_kernel (K4), each with
+    recall@10 against BruteForce.  K1 and K3 are held against their
+    plain versions on the scan's own operands, K2 on random operands of
+    a build wave's shape (as in phase 3), K4 at the packed call (its
+    plain version LADDER_ROWS queries at a time)."""
+    from instant_distance_tpu_torch.models.scan import _int32_saturating
+    from instant_distance_tpu_torch.ops import packed as pk
+    from instant_distance_tpu_torch.ops import walk_kernel as wk
+    from instant_distance_tpu_torch.utils.datasets import load_config
+
+    t_wall = time.perf_counter()
+    data, queries = load_config("gist1m")
+    pts = torch.from_numpy(data).to(dev)
+    queries = torch.from_numpy(queries[:N_QUERIES]).to(dev)
+    n, d = data.shape
+    del data
+    gt = idt.BruteForce(pts).search_batch(queries, K)[1].cpu().numpy()
+    _phase("ladder", f"load_config('gist1m'): {n}x{d} points and "
+           f"{queries.shape[0]} of its 10,000 queries (clustered, "
+           f"{max(100, n // 1000)} clusters), truth from BruteForce: "
+           f"{time.perf_counter() - t_wall:.1f} s")
+    scan = idt.ScanIndex(pts)
+    for lsub, kernel, other in ((16, "fused_scan_bucket_int_packed",
+                                 "fused_scan_bucket_int"),
+                                (32, "fused_scan_bucket_int",
+                                 "fused_scan_bucket_int_packed")):
+        path = f"ladder scan lsub {lsub}"
+        kw = dict(LADDER_SCAN_KW, lsub=lsub)
+
+        def run():
+            dd, i = scan.search_batch(queries, **kw)
+            _check_results(torch, dd, i, queries.shape[0], path)
+            return _ladder_recall(i, gt), _wall_s(
+                torch, lambda: scan.search_batch(queries, **kw), 3)
+
+        rec, t = launches.run(path, run)
+        launches.need(path, [kernel], absent=[other])
+        _phase("ladder", f"ScanIndex {kw}: {kernel}, {queries.shape[0] / t:.1f}"
+               f" qps ({t * 1e3:.2f} ms/batch of {queries.shape[0]}), "
+               f"recall@10 {rec:.4f} [{CARD}]")
+        _check_recall([rec], path)
+    cb = LADDER_SCAN_KW["cb"]
+    codes_t, norms_r, sg = scan._fused_int_arrays(cb * LADDER_SCAN_KW["inner"])
+    qc, qs = tsk.quantize_batch(queries)
+    denom = 2.0 * qs * sg
+    w2 = tsk.pack_w2(norms_r, denom, None, lsub=16, cb=cb, d=d)
+    _hold_kernel(torch, tsk, "ladder scan lsub 16",
+                 "fused_scan_bucket_int_packed", (qc,), (w2, codes_t),
+                 dict(lsub=16, cb=cb))
+    del w2
+    w = torch.where(torch.isfinite(norms_r),
+                    _int32_saturating(torch.round(norms_r / denom)),
+                    (2**31 - 1) // 2)
+    _hold_kernel(torch, tsk, "ladder scan lsub 32", "fused_scan_bucket_int",
+                 (qc,), (w, codes_t), dict(lsub=32, cb=cb))
+    del scan, codes_t, norms_r, w, qc
+    rows, shared, kw = _operands(torch, tsk, dev, "fused_scan_bucket", 4096,
+                                 d, _padded(n, BUILD_CB), BUILD_LSUB,
+                                 BUILD_CB, {"is_dot": False})
+    _hold_kernel(torch, tsk, "ladder build wave", "fused_scan_bucket", rows,
+                 shared, kw)
+    del rows, shared
+    torch.cuda.empty_cache()
+
+    cfg = idt.Config(seed=0, m=32, wave_size=4096, ef_search=50)
+    (index, ids), build_s, peak = _build_path(
+        torch, launches, "ladder hnsw",
+        lambda progress: idt.Hnsw.build(pts, cfg, progress=progress))
+    launches.need("ladder hnsw", ["fused_scan_bucket"],
+                  absent=["fused_scan_bucket_int_packed"])
+    truth = ids[gt]
+
+    def search():
+        dd, p = index.search_batch(queries, k=K, ef=50)
+        _check_results(torch, dd, p, queries.shape[0], "ladder hnsw")
+        return _ladder_recall(p, truth), _wall_s(
+            torch, lambda: index.search_batch(queries, k=K, ef=50), 1)
+
+    rec, t = launches.run("ladder hnsw search", search)
+    _phase("ladder", f"Hnsw.build {n}x{d} m=32 wave 4096: {build_s:.1f} s "
+           f"({n / build_s:.1f} pts/s), peak memory {peak:.2f} GiB, reverse "
+           f"drops {index.reverse_drops}, launches "
+           f"{ {k: v for k, v in launches.paths['ladder hnsw'].items() if v} }"
+           f"; search_batch ef=50 batch {queries.shape[0]}: "
+           f"{queries.shape[0] / t:.1f} qps, recall@10 {rec:.4f} [{CARD}]")
+    _check_recall([rec], "ladder hnsw")
+
+    # the packed form: decide from the arithmetic whether it fits
+    del pts
+    torch.cuda.empty_cache()
+    k0 = index.zero.shape[1]
+    need = (n * k0 * (d + 4) + n * d
+            + sum(l.shape[0] * l.shape[1] * (d + 4) for l in index.layers)
+            + LADDER_HEADROOM)
+    free, total = torch.cuda.mem_get_info()
+    _phase("ladder", f"before from_index: mem_get_info free {free / 1e9:.2f}"
+           f" GB of {total / 1e9:.2f} GB; the packed form needs "
+           f"{need / 1e9:.2f} GB ([{n}, {k0}, {d}] int8 codes, their scales,"
+           f" the upper layers, the points' codes, "
+           f"{LADDER_HEADROOM / 1e9:.1f} GB for the searches)")
+    if need > free:
+        del index
+        torch.cuda.empty_cache()
+        data, q2 = load_config("gist1m", n=LADDER_PACKED_FALLBACK)
+        queries = torch.from_numpy(q2[:N_QUERIES]).to(dev)
+        pts = torch.from_numpy(data).to(dev)
+        n = data.shape[0]
+        del data
+        gt = idt.BruteForce(pts).search_batch(queries, K)[1].cpu().numpy()
+        (index, ids), build_s, peak = _build_path(
+            torch, launches, "ladder hnsw (packed)",
+            lambda progress: idt.Hnsw.build(pts, cfg, progress=progress))
+        truth = ids[gt]
+        del pts
+        _phase("ladder", f"the packed form does not fit at 1M: packed route "
+               f"on load_config('gist1m', n={n}) (built in {build_s:.1f} s)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    packed = idt.PackedHnsw.from_index(index)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    pack_peak = _peak_gib(torch)
+
+    def serve():
+        dd, p = packed.search_batch_kernel(queries, **PACKED_KW)
+        _check_results(torch, dd, p, queries.shape[0], "ladder packed")
+        return _ladder_recall(p, truth), _wall_s(
+            torch, lambda: packed.search_batch_kernel(queries, **PACKED_KW),
+            3)
+
+    rec, t = launches.run("ladder packed", serve)
+    launches.need("ladder packed", ["walk_search"])
+    _phase("ladder", f"PackedHnsw.from_index {n}x{d} K={k0}: {pack_s:.2f} s, "
+           f"nbytes {packed.nbytes() / 1e9:.2f} GB, peak memory "
+           f"{pack_peak:.2f} GiB; search_batch_kernel({PACKED_KW}) batch "
+           f"{queries.shape[0]}: {queries.shape[0] / t:.1f} qps "
+           f"({t * 1e3:.2f} ms/batch), recall@10 {rec:.4f} [{CARD}]")
+    _check_recall([rec], "ladder packed")
+    ef = PACKED_KW["ef"]
+    beams = pk.seeded_beam(
+        queries, packed.points[:PACKED_KW["entry_seeds"]].to(torch.bfloat16),
+        ef)
+    walk_kw = dict(expand=PACKED_KW["expand"], ef=ef,
+                   max_iters=cfg.max_iter_factor * ef + 16)
+    check_walk(torch, wk, "ladder packed call",
+               (queries, *beams, *packed.zero_pack), walk_kw,
+               rows=LADDER_ROWS)
+    del packed, index, beams, queries
+    torch.cuda.empty_cache()
+    _phase("ladder", f"wall {time.perf_counter() - t_wall:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -1752,6 +2159,17 @@ def main(argv=None) -> int:
     launches = Launches(tsk)
     nq = N_BLOCKS * BLOCK
 
+    # -- the oracle, with the examples running beside it --------------------
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        started = start_examples(root, tmp)
+        try:
+            phase_oracle(torch, idt, launches, dev)
+        except BaseException:
+            stop_examples(started)
+            raise
+        phase_examples(started)
+
     # -- 4. ScanIndex, bucket_pack, 1M x 128; the K6 attribution path ----
     t0 = time.perf_counter()
     data = synthetic_clustered(N_POINTS + N_QUERIES, DIM, n_clusters=10000,
@@ -1828,7 +2246,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         fname = os.path.join(tmp, "native.npz")
         phase_native(torch, idt, launches, pts, queries, fname)
-        phase_cli(os.path.dirname(os.path.abspath(__file__)), tmp, fname, pts)
+        phase_cli(root, tmp, fname, pts)
     del pts, queries
     torch.cuda.empty_cache()
 
@@ -1893,6 +2311,9 @@ def main(argv=None) -> int:
 
     # -- 13. the sampled build at DEEP's width ------------------------------
     phase_sampled(torch, idt, launches, dev)
+
+    # -- the ladder's GIST1M rung: K1, K3, K2 and K4 at D = 960 -------------
+    phase_ladder(torch, idt, tsk, launches, dev)
 
     # -- 14. the paths ran through every kernel ----------------------------
     _phase("launches", "; ".join(

@@ -28,10 +28,15 @@ window and Alg. 4 selection with an f32 pairwise matrix are bit-exact;
 with the default bfloat16 matrix the selections agree on a stated share
 of rows; the two-key sort breaks ties as ``lax.sort(num_keys=2)``.
 
+The sequential oracle: the port's ``RefHnsw`` builds the JAX package's
+graph bit for bit (Alg. 4, the simple selection, a callable metric), and
+the port's batched ``hnsw_search`` returns its pid lists exactly.
+
 The port stands alone: a subprocess builds and searches with ``jax`` and
-``instant_distance_tpu`` both blocked, and the port's own copies of
-``layer_sizes``, ``resolve_seed``, ``Config``, the dataset generators and
-``recall_at_k`` equal the JAX package's.  Numpy input with no ``device``
+``instant_distance_tpu`` both blocked (it runs beside the item's last
+checks), and the port's own copies of ``layer_sizes``, ``resolve_seed``,
+``Config``, the dataset generators and ``recall_at_k`` equal the JAX
+package's.  Numpy input with no ``device``
 goes to the CUDA card, and raises where there is none (here).
 
 The build modes beyond scan_fused, checkpoints and ``add`` are checked by
@@ -66,6 +71,7 @@ from instant_distance_tpu.ops import distance as jdist
 from instant_distance_tpu.ops import select as jsel
 from instant_distance_tpu.utils import datasets as jdatasets
 from instant_distance_tpu.utils import metrics as jmetrics
+from instant_distance_tpu.utils.refimpl import RefHnsw as JaxRefHnsw
 from instant_distance_tpu.utils.validate import validate_graph
 import instant_distance_tpu_torch as tpkg
 from instant_distance_tpu_torch import Builder, PackedHnsw, ScanIndex
@@ -75,9 +81,11 @@ from instant_distance_tpu_torch.models.hnsw import Hnsw, HnswMap, Search
 from instant_distance_tpu_torch.ops import construct as tc
 from instant_distance_tpu_torch.ops import distance as tdist
 from instant_distance_tpu_torch.ops import select as tsel
+from instant_distance_tpu_torch.ops.beam import hnsw_search
 from instant_distance_tpu_torch.ops.sort import sort2
 from instant_distance_tpu_torch.utils import datasets as tdatasets
 from instant_distance_tpu_torch.utils import metrics as tmetrics
+from instant_distance_tpu_torch.utils.refimpl import RefHnsw
 from instant_distance_tpu_torch.utils.convert import (as_tensor,
                                                        hnsw_from_arrays,
                                                        scan_from_points)
@@ -269,78 +277,101 @@ def _check_sort2_ties():
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
-def _check_runs_without_jax():
+_WITHOUT_JAX = (
+    "import sys\n"
+    "sys.modules['jax'] = sys.modules['instant_distance_tpu'] = None\n"
+    "import numpy as np, instant_distance_tpu_torch as t\n"
+    "from instant_distance_tpu_torch.utils.datasets import "
+    "synthetic_clustered\n"
+    "from instant_distance_tpu_torch.utils.metrics import recall_at_k\n"
+    "pts = synthetic_clustered(300, 8, n_clusters=10, seed=0)\n"
+    "for metric in ('sqeuclidean', 'cosine'):\n"
+    "    idx, ids = t.Hnsw.build(pts, t.Config(seed=1, m=4, wave_size=32,\n"
+    "        metric=metric), device='cpu')\n"
+    "    d, p = idx.search_batch(pts[:4], k=3)\n"
+    "    assert recall_at_k(p[:, :1].numpy(), ids[:4, None]) == 1.0\n"
+    "beam, _ = t.Hnsw.build(pts, t.Config(seed=1, m=4, wave_size=32,\n"
+    "    metric=lambda a, b: ((a - b) ** 2).sum()), device='cpu')\n"
+    "assert (beam.add(pts[:5] + 0.5) == np.arange(300, 305)).all()\n"
+    "assert beam.search_batch(pts[:5] + 0.5, k=1)[1][0, 0] == 300\n"
+    "for fused in ('bucket_pack', 'bucket_int', 'bucket', 'topt'):\n"
+    "    d, i = t.ScanIndex(pts, device='cpu').search_batch(\n"
+    "        pts[:4], k=3, fused=fused, lsub=8, cb=64)\n"
+    "    assert (i[:, 0].numpy() == np.arange(4)).all(), fused\n"
+    "import os, tempfile\n"
+    "with tempfile.TemporaryDirectory() as tmp:\n"
+    "    f = os.path.join(tmp, 'p.npz')\n"
+    "    idx.dump(f)\n"
+    "    pk = t.PackedHnsw.from_index(t.Hnsw.load(f, device='cpu'))\n"
+    "    pk.dump(f)\n"
+    "    pk = t.PackedHnsw.load(f, device='cpu')\n"
+    "q = idx.points[:4]\n"
+    "for p in (pk.search_batch(q, k=3)[1],\n"
+    "          pk.search_batch_kernel(q, k=3, entry_seeds=64)[1]):\n"
+    "    assert (p[:, 0].numpy() == np.arange(4)).all()\n"
+    "from instant_distance_tpu_torch import native\n"
+    "from instant_distance_tpu_torch.models.hybrid import HybridIndex\n"
+    "from instant_distance_tpu_torch.utils import profiling, validate\n"
+    "from instant_distance_tpu_torch.__main__ import main\n"
+    "nat, _ = t.Hnsw.build(pts, t.Config(seed=1, m=4), backend='native',\n"
+    "    device='cpu')\n"
+    "assert validate.validate_graph(nat).ok\n"
+    "assert (HybridIndex(nat).search_batch(pts[:2], k=1)[1][:, 0]\n"
+    "        == nat.search_batch(pts[:2], k=1)[1][:, 0].numpy()).all()\n"
+    "s = t.StreamingHnsw(nat, serving='scan')\n"
+    "assert s.search_batch(pts[:3] + 1, k=1)[1][0, 0] != 300\n"
+    "s.add(pts[:3] + 1)\n"
+    "assert (s.search_batch(pts[:3] + 1, k=1)[1][:, 0].numpy()\n"
+    "        == np.arange(300, 303)).all()\n"
+    "from instant_distance_tpu_torch.parallel import (mesh, replicated,\n"
+    "    scan, sharded)\n"
+    "sh = t.ShardedHnsw.build(pts, t.Config(seed=1, m=4, wave_size=32),\n"
+    "    mesh=mesh.default_mesh(devices=['cpu'] * 4))\n"
+    "assert sh.n_shards == 4 and len(sh) == 300\n"
+    "assert (sh.search_batch(pts[:4], k=1)[1][:, 0].numpy()\n"
+    "        == np.arange(4)).all()\n"
+    "from instant_distance_tpu_torch.utils.refimpl import RefHnsw\n"
+    "ref = RefHnsw(pts[:50], t.Config(seed=1, m=4, ef_construction=16))\n"
+    "assert ref.search(ref.points[7], ef=8)[0][1] == 7\n"
+    "from instant_distance_tpu_torch.utils.datasets import load_config\n"
+    "rgb, rgb_q = load_config('rgb', n=32)\n"
+    "assert rgb.shape == (32, 3) and rgb_q.shape == (10_000, 3)\n"
+    "import contextlib, io\n"
+    "from instant_distance_tpu_torch.examples import colors\n"
+    "out = io.StringIO()\n"
+    "with contextlib.redirect_stdout(out):\n"
+    "    colors.main(['--device', 'cpu'])\n"
+    "assert out.getvalue() == 'red\\n', out.getvalue()\n"
+    "loaded = {m.split('.')[0] for m in sys.modules\n"
+    "          if sys.modules[m] is not None}\n"
+    "assert not loaded & {'jax', 'instant_distance_tpu'}, loaded\n"
+    "print('ok')\n")
+
+
+def _start_without_jax():
+    """Start :func:`_check_runs_without_jax`'s subprocess, which runs
+    beside the item's later checks (after ``check_serving`` has built the
+    host engine it loads); returns it."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="1")
+    return subprocess.Popen([sys.executable, "-c", _WITHOUT_JAX],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env)
+
+
+def _check_runs_without_jax(proc):
     """The port imports nothing of JAX or the JAX package: a tiny CPU
     build (K1 and K2 routes), a beam build with a callable metric and an
     add to it, graph search, kernel-path scans, a dump, load, pack and
     packed search (both routes), and a native build served by
     ``HybridIndex`` and ``StreamingHnsw`` (with the CLI, validation and
-    profiling modules imported), and a 4-shard ``ShardedHnsw`` on the CPU
-    with the ``parallel`` modules imported, succeed with ``jax`` and
-    ``instant_distance_tpu`` blocked, and so do the dataset and recall
-    helpers that chip_smoke.py imports."""
-    code = (
-        "import sys\n"
-        "sys.modules['jax'] = sys.modules['instant_distance_tpu'] = None\n"
-        "import numpy as np, instant_distance_tpu_torch as t\n"
-        "from instant_distance_tpu_torch.utils.datasets import "
-        "synthetic_clustered\n"
-        "from instant_distance_tpu_torch.utils.metrics import recall_at_k\n"
-        "pts = synthetic_clustered(300, 8, n_clusters=10, seed=0)\n"
-        "for metric in ('sqeuclidean', 'cosine'):\n"
-        "    idx, ids = t.Hnsw.build(pts, t.Config(seed=1, m=4, wave_size=32,\n"
-        "        metric=metric), device='cpu')\n"
-        "    d, p = idx.search_batch(pts[:4], k=3)\n"
-        "    assert recall_at_k(p[:, :1].numpy(), ids[:4, None]) == 1.0\n"
-        "beam, _ = t.Hnsw.build(pts, t.Config(seed=1, m=4, wave_size=32,\n"
-        "    metric=lambda a, b: ((a - b) ** 2).sum()), device='cpu')\n"
-        "assert (beam.add(pts[:5] + 0.5) == np.arange(300, 305)).all()\n"
-        "assert beam.search_batch(pts[:5] + 0.5, k=1)[1][0, 0] == 300\n"
-        "for fused in ('bucket_pack', 'bucket_int', 'bucket', 'topt'):\n"
-        "    d, i = t.ScanIndex(pts, device='cpu').search_batch(\n"
-        "        pts[:4], k=3, fused=fused, lsub=8, cb=64)\n"
-        "    assert (i[:, 0].numpy() == np.arange(4)).all(), fused\n"
-        "import os, tempfile\n"
-        "with tempfile.TemporaryDirectory() as tmp:\n"
-        "    f = os.path.join(tmp, 'p.npz')\n"
-        "    idx.dump(f)\n"
-        "    pk = t.PackedHnsw.from_index(t.Hnsw.load(f, device='cpu'))\n"
-        "    pk.dump(f)\n"
-        "    pk = t.PackedHnsw.load(f, device='cpu')\n"
-        "q = idx.points[:4]\n"
-        "for p in (pk.search_batch(q, k=3)[1],\n"
-        "          pk.search_batch_kernel(q, k=3, entry_seeds=64)[1]):\n"
-        "    assert (p[:, 0].numpy() == np.arange(4)).all()\n"
-        "from instant_distance_tpu_torch import native\n"
-        "from instant_distance_tpu_torch.models.hybrid import HybridIndex\n"
-        "from instant_distance_tpu_torch.utils import profiling, validate\n"
-        "from instant_distance_tpu_torch.__main__ import main\n"
-        "nat, _ = t.Hnsw.build(pts, t.Config(seed=1, m=4), backend='native',\n"
-        "    device='cpu')\n"
-        "assert validate.validate_graph(nat).ok\n"
-        "assert (HybridIndex(nat).search_batch(pts[:2], k=1)[1][:, 0]\n"
-        "        == nat.search_batch(pts[:2], k=1)[1][:, 0].numpy()).all()\n"
-        "s = t.StreamingHnsw(nat, serving='scan')\n"
-        "assert s.search_batch(pts[:3] + 1, k=1)[1][0, 0] != 300\n"
-        "s.add(pts[:3] + 1)\n"
-        "assert (s.search_batch(pts[:3] + 1, k=1)[1][:, 0].numpy()\n"
-        "        == np.arange(300, 303)).all()\n"
-        "from instant_distance_tpu_torch.parallel import (mesh, replicated,\n"
-        "    scan, sharded)\n"
-        "sh = t.ShardedHnsw.build(pts, t.Config(seed=1, m=4, wave_size=32),\n"
-        "    mesh=mesh.default_mesh(devices=['cpu'] * 4))\n"
-        "assert sh.n_shards == 4 and len(sh) == 300\n"
-        "assert (sh.search_batch(pts[:4], k=1)[1][:, 0].numpy()\n"
-        "        == np.arange(4)).all()\n"
-        "loaded = {m.split('.')[0] for m in sys.modules\n"
-        "          if sys.modules[m] is not None}\n"
-        "assert not loaded & {'jax', 'instant_distance_tpu'}, loaded\n"
-        "print('ok')\n")
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="1")
-    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, env=env, timeout=300)
-    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+    profiling modules imported), a 4-shard ``ShardedHnsw`` on the CPU
+    with the ``parallel`` modules imported, a 50-point ``RefHnsw``, the
+    ladder's ``load_config`` and the colors example (``--device cpu``)
+    succeed with ``jax`` and ``instant_distance_tpu`` blocked, and so do
+    the dataset and recall helpers that chip_smoke.py imports."""
+    out, err = proc.communicate(timeout=300)
+    assert proc.returncode == 0 and out.strip() == "ok", err
 
 
 #: The K2 builds: D=300 clustered data, a pool and waves small enough for
@@ -372,6 +403,61 @@ def _check_k2_builds():
         assert rec >= 0.9 and rec >= ref_rec - 0.02, (metric, rec, ref_rec)
 
 
+#: The oracle checks: test_beam_vs_oracle.py's 700 x 8 sqeuclidean data
+#: and seed, with M 4 and ef_construction 16 (a sequential Python build
+#: at the default M 32 and 100 takes tens of seconds), which still
+#: gives four layers; the callable metric's 200 x 4 at M 2 and 8, since
+#: the JAX oracle calls its (jitted) jnp callable once per distance.
+ORACLE_KW = dict(seed=1234, metric="sqeuclidean", m=4, ef_construction=16)
+CALLABLE_KW = dict(seed=3, m=2, ef_construction=8)
+
+
+def _same_oracle(got, want, what):
+    np.testing.assert_array_equal(got.ids, want.ids, err_msg=what)
+    np.testing.assert_array_equal(got.points, want.points, err_msg=what)
+    np.testing.assert_array_equal(got.zero, want.zero, err_msg=what)
+    assert len(got.layers) == len(want.layers), what
+    for g, w in zip(got.layers, want.layers):
+        np.testing.assert_array_equal(g, w, err_msg=what)
+
+
+def _check_refimpl():
+    """The port's ``RefHnsw`` builds the JAX package's graph bit for bit
+    (ids, points, zero layer, upper layers) with Alg. 4 and with the
+    simple selection, and with a callable metric (a jnp lambda there,
+    the same torch lambda here); the port's batched ``hnsw_search`` on
+    the oracle's graph returns the oracle's pid lists exactly and its
+    distances within 1e-5 relative (tests/test_beam_vs_oracle.py:60-76,
+    on the CPU)."""
+    rng = np.random.default_rng(1234)
+    pts = rng.standard_normal((700, 8)).astype(np.float32)
+    queries = rng.standard_normal((8, 8)).astype(np.float32)
+    for heuristic, jax_heuristic in ((tconfig.Heuristic(),
+                                      jconfig.Heuristic()), (None, None)):
+        ref = RefHnsw(pts, tconfig.Config(heuristic=heuristic, **ORACLE_KW))
+        _same_oracle(ref, JaxRefHnsw(pts, jconfig.Config(
+            heuristic=jax_heuristic, **ORACLE_KW)), f"RefHnsw {heuristic}")
+        assert len(ref.layers) >= 2
+        cfg = ref.config
+        d, p = hnsw_search(
+            torch.from_numpy(queries), torch.from_numpy(ref.zero),
+            tuple(torch.from_numpy(a) for a in reversed(ref.layers)),
+            torch.from_numpy(ref.points), tdist.resolve(cfg.metric), ef=64,
+            m=cfg.m, zero_links=cfg.m0)
+        for i, q in enumerate(queries):
+            oracle = ref.search(q, ef=64)
+            assert p[i, :len(oracle)].tolist() == [pid for _, pid in oracle]
+            np.testing.assert_allclose(
+                d[i, :len(oracle)].numpy(),
+                np.array([dd for dd, _ in oracle], np.float32), rtol=1e-5)
+    pts = rng.standard_normal((200, 4)).astype(np.float32)
+    ref = RefHnsw(pts, tconfig.Config(
+        metric=lambda a, b: ((a - b) ** 2).sum(), **CALLABLE_KW))
+    _same_oracle(ref, JaxRefHnsw(pts, jconfig.Config(
+        metric=jax.jit(lambda a, b: jnp.sum((a - b) ** 2)), **CALLABLE_KW)),
+        "RefHnsw callable")
+
+
 def _check_copies():
     """The port's own copies equal the JAX package's originals."""
     for n, ml, m in ((1, 0.3, 4), (1000, 1 / np.log(8), 8),
@@ -399,17 +485,19 @@ def _check_copies():
 
 def _check_card_default():
     """Numpy input with no device goes to the card; here, with none, every
-    entry point raises instead of running on the CPU.  CPU tensors keep
-    their device."""
+    entry point (an example among them) raises instead of running on the
+    CPU.  CPU tensors keep their device."""
     pts = np.zeros((40, 4), np.float32)
     assert as_tensor(torch.zeros(2)).device.type == "cpu"
     assert as_tensor(pts, "cpu").device.type == "cpu"
     if torch.cuda.is_available():
         assert as_tensor(pts).device.type == "cuda"
         return
+    from instant_distance_tpu_torch.examples import colors
     from instant_distance_tpu_torch.parallel.mesh import default_mesh
 
     entry_points = (
+        lambda: colors.main([]),
         lambda: default_mesh(),
         lambda: tpkg.ShardedHnsw.build(pts, CFG),
         lambda: tpkg.ShardedScanIndex(pts),
@@ -544,10 +632,17 @@ def test_build_and_search_match_jax():
     check_construct(arrays, queries)
     check_serving(arrays, queries)
 
-    _check_k2_builds()
-    _check_reverse_grouping()
-    _check_select_heuristic()
-    _check_sort2_ties()
-    _check_copies()
-    _check_card_default()
-    _check_runs_without_jax()
+    without_jax = _start_without_jax()
+    try:
+        _check_k2_builds()
+        _check_refimpl()
+        _check_reverse_grouping()
+        _check_select_heuristic()
+        _check_sort2_ties()
+        _check_copies()
+        _check_card_default()
+        _check_runs_without_jax(without_jax)
+    finally:
+        if without_jax.poll() is None:
+            without_jax.kill()
+            without_jax.wait()

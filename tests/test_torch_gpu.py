@@ -47,6 +47,10 @@ PACKED_CASES = (
     (64, 1024, 16384, 16, 4096, 0, ""),      # two chunks of d
     (40, 128, 8192, 32, 2048, 0, "misaligned"),
     (4096, 96, 3 * 8192, 64, 8192, 0, ""),   # a sampled build's capped scan
+    # GIST1M's width at lsub 16: the ladder's ScanIndex slice, and every
+    # code +-127 (|dot| * lsub = 2.48e8) with N/lsub = 144
+    (1024, 960, 65536, 16, 8192, 0, ""),
+    (129, 960, 2304, 16, 768, 0, "extreme"),
 )
 #: K2 / K3 / K5: (B, D, N, lsub, cb, variant); each runs K2 and K5 both
 #: ways of is_dot.  300 is the fastText width of the 300-d path.  K5's
@@ -72,6 +76,11 @@ BUCKET_CASES = (
     (40, 128, 8192, 32, 2048, "misaligned"),
     (33, 40, 1024, 16, 64, ""),              # cb/lsub = 4 < TOPT
     (200, 300, 12288, 16, 4096, "edges"),    # the topt path's lsub and cb
+    # GIST1M's width: the build wave's K2 and the ladder's K3 (lsub 32,
+    # cb 8192), and a ragged tile (cb/lsub = 24)
+    (1024, 960, 65536, 32, 4096, ""),
+    (1024, 960, 65536, 32, 8192, ""),
+    (130, 960, 2304, 32, 768, "ties"),
 )
 TOPT = 8
 

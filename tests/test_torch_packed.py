@@ -370,11 +370,13 @@ def check_cpu(arrays, queries):
 #: 12 stages at most SMALL_STAGE bytes of codes at once, so the rows pass
 #: the staging buffer (whole-row chunks, or 32 rows times a slice of D at
 #: D = 300).  B = 100 is a ragged batch, D = 300
-#: the 300-d path's width, D = 30 not a multiple of 4.
+#: the 300-d path's width, D = 30 not a multiple of 4, D = 960 GIST1M's
+#: (a slice of D a stage at every staging size).
 WALK_CASES = tuple((b, d, n, k) for b, d, n in ((256, 16, 2048),
                                                 (100, 30, 2048),
                                                 (256, 128, 4096),
-                                                (100, 300, 2048))
+                                                (100, 300, 2048),
+                                                (64, 960, 2048))
                    for k in (8, 64))
 #: More K4 cases: (B, D, N, K, ef, expand, variant).  Odd row sizes take
 #: 4-byte cp.async and plain loads, as do misaligned codes; K = 2048 with

@@ -37,6 +37,11 @@ share.
   and queries and Alg. 3 selection bit-exact; exact rerank ids
   bit-exact; brute-force ids on at least 99% of entries.
 
+* The dataset ladder (``read_fvecs``, ``read_ivecs``, ``CONFIGS``,
+  ``load_config``) equals the JAX package's bit for bit, and the port's
+  colors and translate examples print what tests/test_examples.py checks
+  of the JAX ones (on the CPU, in a subprocess beside the other checks).
+
 The parallel wrappers (``ShardedHnsw``, ``ShardedScanIndex``, the
 ``Replicated*`` forms, the sharded files and a two-process gloo mesh)
 are checked by ``tests/test_torch_parallel.py``, whose ``check_cpu``
@@ -46,6 +51,11 @@ The checks run as one test item: each item the suite collects shifts
 how pytest-xdist splits the whole suite into chunks, and one item keeps
 that split as it is without the port (the reasoning is in CHANGES.md).
 """
+
+import os
+import subprocess
+import sys
+import tempfile
 
 import jax.numpy as jnp
 import numpy as np
@@ -68,6 +78,8 @@ from instant_distance_tpu_torch.ops import packed as tpacked
 from instant_distance_tpu_torch.ops import scan_kernel as tsk
 from instant_distance_tpu_torch.ops import select as tsel
 from instant_distance_tpu_torch.utils.convert import scan_from_points
+from instant_distance_tpu.utils import datasets as jdatasets
+from instant_distance_tpu_torch.utils import datasets as tdatasets
 from test_torch_parallel import check_cpu as check_parallel
 
 # Tiny shapes: more threads only add synchronisation under a parallel run.
@@ -611,20 +623,123 @@ def _check_bruteforce():
                      f"BruteForce {metric}")
 
 
+def _check_datasets():
+    """The port's ladder equals the JAX package's: the TexMex readers on
+    the same file (with and without ``max_rows``), every rung's synthetic
+    (points, queries) from the same seed bit for bit, and the ``data_dir``
+    branch reading the same files."""
+    rng = np.random.default_rng(8)
+    f32 = rng.standard_normal((20, 6)).astype(np.float32)
+    i32 = rng.integers(0, 1000, (20, 6), dtype=np.int32)
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, rows in (("x.fvecs", f32.view(np.int32)), ("x.ivecs", i32)):
+            np.concatenate([np.full((20, 1), 6, np.int32), rows],
+                           1).tofile(os.path.join(tmp, name))
+        for fn in ("read_fvecs", "read_ivecs"):
+            path = os.path.join(tmp, "x." + fn[5:])
+            for max_rows in (None, 7):
+                got = getattr(tdatasets, fn)(path, max_rows=max_rows)
+                want = getattr(jdatasets, fn)(path, max_rows=max_rows)
+                assert got.dtype == want.dtype, fn
+                np.testing.assert_array_equal(got, want, err_msg=fn)
+        np.testing.assert_array_equal(tdatasets.read_fvecs(
+            os.path.join(tmp, "x.fvecs")), f32)
+        assert tdatasets.CONFIGS == jdatasets.CONFIGS
+        for name in tdatasets.CONFIGS:
+            got = tdatasets.load_config(name, n=64, seed=3, data_dir=tmp)
+            want = jdatasets.load_config(name, n=64, seed=3, data_dir=tmp)
+            assert got[0].shape == (64, tdatasets.CONFIGS[name]["dim"])
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g, w, err_msg=name)
+        os.mkdir(os.path.join(tmp, "sift"))
+        base = rng.standard_normal((50, 128)).astype(np.float32)
+        for fname, rows in (("sift_base.fvecs", base),
+                            ("sift_query.fvecs", base[:9] + 1)):
+            np.concatenate([np.full((len(rows), 1), 128, np.int32),
+                            rows.view(np.int32)], 1).tofile(
+                os.path.join(tmp, "sift", fname))
+        for n in (None, 30):
+            got = tdatasets.load_config("sift1m", n=n, data_dir=tmp)
+            want = jdatasets.load_config("sift1m", n=n, data_dir=tmp)
+            np.testing.assert_array_equal(got[0], base[:n])
+            np.testing.assert_array_equal(got[1], base[:9] + 1)
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g, w)
+
+
+#: The port's examples that run here, as ``python -m`` runs them, one
+#: after another in one subprocess (the second translate run loads the
+#: first one's dump): module, arguments.
+EXAMPLE_RUNS = (
+    ("colors", []),
+    ("translate", ["word7_en", "--n-words", "150"]),
+    ("translate", ["word9_en"]),
+)
+_EXAMPLES = """
+import runpy, sys
+for module, argv in {runs!r}:
+    print("=== " + module, flush=True)
+    sys.argv = [module, *argv]
+    runpy.run_module("instant_distance_tpu_torch.examples." + module,
+                     run_name="__main__", alter_sys=True)
+"""
+
+
+def _start_examples(tmp):
+    """Start the port's colors and translate examples on the CPU in a
+    subprocess, which runs beside this item's other checks; returns it
+    for :func:`_check_examples`."""
+    index = os.path.join(tmp, "translate.idx.npz")
+    runs = [(module, [*args, "--device", "cpu"]
+             + (["--index", index] if module == "translate" else []))
+            for module, args in EXAMPLE_RUNS]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="1")
+    return subprocess.Popen(
+        [sys.executable, "-c", _EXAMPLES.format(runs=runs)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _check_examples(proc):
+    """The lines tests/test_examples.py checks of the JAX examples: colors
+    prints exactly ``red``; translate finds word 7's French and Italian
+    words, then a second run loads the dumped index (it builds nothing)
+    and translates word 9."""
+    out, err = proc.communicate(timeout=300)
+    assert proc.returncode == 0, err[-3000:]
+    runs = out.split("=== ")[1:]
+    assert [r.split("\n", 1)[0] for r in runs] == \
+        [m for m, _ in EXAMPLE_RUNS], out
+    colors, first, second = (r.split("\n", 1)[1] for r in runs)
+    assert colors.strip() == "red", colors
+    assert "fr: word7_fr" in first and "it: word7_it" in first, first
+    assert "word9" in second, second
+    assert err.count("building index") == 1, err
+
+
 def test_scan_path_matches_jax():
-    _check_pack_w2()
-    _check_k1_plain()
-    _check_k1_wrapper()
-    _check_bucket_kernels_plain()
-    _check_bucket_wrappers()
-    _check_fused_operands()
-    _check_scan_index()
-    _check_scan_grouped()
-    _check_scan_index_modes()
-    _check_int32_saturation()
-    _check_metrics()
-    _check_quantize()
-    _check_rerank()
-    _check_select_simple()
-    _check_bruteforce()
-    check_parallel()
+    with tempfile.TemporaryDirectory() as tmp:
+        examples = _start_examples(tmp)
+        try:
+            _check_datasets()
+            _check_pack_w2()
+            _check_k1_plain()
+            _check_k1_wrapper()
+            _check_bucket_kernels_plain()
+            _check_bucket_wrappers()
+            _check_fused_operands()
+            _check_scan_index()
+            _check_scan_grouped()
+            _check_scan_index_modes()
+            _check_int32_saturation()
+            _check_metrics()
+            _check_quantize()
+            _check_rerank()
+            _check_select_simple()
+            _check_bruteforce()
+            check_parallel()
+            _check_examples(examples)
+        finally:
+            if examples.poll() is None:
+                examples.kill()
+                examples.wait()

@@ -175,6 +175,9 @@ K1_CASES = (
     (130, 256, 8192, 64, 8192, 0, "extreme"),  # every code +-127
     (40, 128, 4096, 16, 2048, 0, "misaligned"),
     (20, 600, 2048, 16, 1024, 0, ""),        # two chunks of d
+    # GIST1M's width at lsub 16 (D * lsub = 15,360): every code +-127
+    # takes |dot| * lsub to 2.48e8, near the packed key's 2^28
+    (33, 960, 2304, 16, 768, 0, "extreme"),
 )
 #: K2: (B, D, N, lsub, cb, variant); each runs both ways of is_dot
 K2_CASES = (
@@ -186,6 +189,7 @@ K2_CASES = (
     (20, 64, 2048, 16, 2048, "misaligned"),
     (20, 16, 960, 3, 96, ""),                # odd lsub: a slab a step
     (9, 40, 1536, 12, 384, "ties"),
+    (20, 960, 2048, 32, 1024, ""),           # GIST1M's width
 )
 
 
@@ -202,6 +206,7 @@ K3_CASES = (
     (70, 100, 4096, 32, 4096, "ties"),
     (33, 600, 2048, 16, 1024, ""),           # two chunks of d
     (20, 64, 2048, 16, 2048, "misaligned"),
+    (20, 960, 2304, 32, 768, ""),            # GIST1M's width, ragged tile
 )
 #: K5: (B, D, N, lsub, cb, topt, variant); each runs both ways of is_dot.
 #: "edges": one whole cb block ineligible (+inf norms), -inf norms in
@@ -362,7 +367,9 @@ K4_N, K4_SEEDS, K4_SMALL_STAGE = 400, 64, 4096
 #: misaligned codes; the largest pool, 4096, takes the block-wide sort.
 K4_EXTRA = ((33, 5, 16, 2, 40960, ""), (18, 6, 20, 1, 40960, ""),
             (64, 16, 24, 2, 40960, "misaligned"),
-            (20, 2048, 40, 2, 8192, ""))
+            (20, 2048, 40, 2, 8192, ""),
+            # GIST1M's width: rows staged a slice of D at a time
+            (960, 64, 50, 2, 20480, "ties"), (960, 64, 12, 1, 4096, ""))
 
 
 def _walk_operands(d, k, ef, variant):
