@@ -69,7 +69,7 @@ against its plain torch version:
                 chunk's first 1,024 rows found at rank 0; then a packed
                 serving form of the same graph, compiled before the last
                 chunk, searched with that chunk pending;
- 11. beam     — the first 131,072 rows of that data built with a torch
+ 11. beam     — the first 65,536 rows of that data built with a torch
                 callable metric (beam-mode waves, no scan kernel), and
                 32,768 rows with Heuristic(extend_candidates=True) (K1);
  12. checkpoint — the first 262,144 rows with an exact prefix of
@@ -78,13 +78,14 @@ against its plain torch version:
                 every 8 waves stopped halfway by its progress callback,
                 build C resumed from B's file: C equals A bit for bit and
                 the file is gone;
-     native   — Hnsw.build(backend="native") of 65,536 of those points on
+     native   — Hnsw.build(backend="native") of 32,768 of those points on
                 all host cores, beside the card's wave build of the same
                 points; served on the card (search_batch, and PackedHnsw's
                 search_batch_kernel, K4);
      cli      — python -m instant_distance_tpu_torch in subprocesses: info,
                 validate, convert (npz -> bincode -> info) and selftest on
-                the native index's dump, build and search on a small .npy;
+                the native index's dump, build and search on a small .npy
+                (those that need no other's output at once, in two rounds);
  13. sampled  — DEEP-shaped data (1M x 96), construct_sample_cols=262,144
                 with the split flag on (the repair in the commit), K1 on
                 the capped columns;
@@ -104,7 +105,11 @@ against its plain torch version:
      sharded checkpoint — after checkpoint: 4 x 65,536 - 3 points (the
                 last shard padded): A, B stopped halfway, C resumed equal
                 to A bit for bit, the recall gate over all queries and over
-                the true neighbours in the last shard (K1);
+                the true neighbours in the last shard (K1); no list links
+                to or from a pad row, and the pad rows are the last pids;
+                then D, the same points under dot (K2 with is_dot): no
+                pad links, and the last shard's recall over its true
+                neighbours within 0.02 of the other shards' mean;
      distributed — a one-rank NCCL group through distributed_mesh: a
                 ShardedHnsw of 65,536 points there equal to the same build
                 on default_mesh(devices=[card]) bit for bit;
@@ -180,7 +185,7 @@ WALK_N, WALK_K, WALK_B, WALK_EF, WALK_S = 65536, 64, 1024, 50, 4096
 ADD_BASE, ADD_CALLS = N_POINTS - 131_072, 4
 #: The beam path's callable build and extend_candidates build (rows of
 #: phase 4's data, cut from 1M for the smoke's time).
-BEAM_N, EXTEND_N = 131_072, 32_768
+BEAM_N, EXTEND_N = 65_536, 32_768
 #: The checkpoint path: rows, exact prefix, waves between saves.
 CKPT_N, CKPT_PREFIX, CKPT_EVERY = 262_144, 131_072, 8
 #: The sampled path (DEEP-shaped, docs/performance.md:665-790 cut from 10M
@@ -196,8 +201,8 @@ GROUP_KW = dict(SCAN_KW, sel_group=4)
 #: The hybrid path: queries timed one at a time, and the host batch.
 P50_QUERIES, HOST_BATCH = 32, 8192
 #: The native path: points built by the host engine (and by the card's
-#: waves beside it).
-NATIVE_N = 65_536
+#: waves beside it), cut from 65,536 for the smoke's time.
+NATIVE_N = 32_768
 #: The streaming path: slab rows that trigger a compaction, and the rows
 #: of each added chunk searched for themselves (read-your-writes).
 STREAM_REPACK, RYW_ROWS = 65_536, 1024
@@ -401,6 +406,10 @@ KERNEL_CASES = (
      {"is_dot": True}),
     ("bucket batch", "fused_scan_bucket", N_QUERIES, DIM300,
      _padded(N_POINTS, SCAN_CB), 32, SCAN_CB, {"is_dot": True}),
+    # the dot build of the sharded checkpoint phase: one shard's wave
+    ("sharded dot build wave", "fused_scan_bucket", 4096, DIM,
+     _padded(-(-SHARD_CKPT_N // SHARDS), BUILD_CB), BUILD_LSUB, BUILD_CB,
+     {"is_dot": True}),
     ("sharded scan batch", "fused_scan_bucket", N_QUERIES, DIM,
      _padded(N_POINTS // SHARDS, SCAN_CB), 32, SCAN_CB, {"is_dot": False}),
     ("replicated scan slice", "fused_scan_bucket", N_QUERIES // SHARDS, DIM,
@@ -1735,44 +1744,58 @@ def phase_streaming(torch, idt, launches, base_file, pts, queries):
 def phase_cli(idt_root, tmp, fname, pts):
     """``python -m instant_distance_tpu_torch`` in subprocesses: info,
     validate, convert (npz -> bincode -> info) and selftest on the native
-    phase's dump, then build and search on a small .npy."""
+    phase's dump, then build and search on a small .npy.  The commands
+    that need no other's output run at once, in two rounds."""
     py = [sys.executable, "-m", "instant_distance_tpu_torch"]
     env = dict(os.environ, PYTHONPATH=idt_root)
+    secs, outs = {}, {}
 
-    def run(*argv):
-        t0 = time.perf_counter()
-        res = subprocess.run([*py, *argv], capture_output=True, text=True,
-                             cwd=idt_root, env=env, timeout=300)
-        if res.returncode != 0:
-            raise AssertionError(f"cli {argv[0]}: exit {res.returncode}\n"
-                                 f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
-        return res.stdout, time.perf_counter() - t0
+    def run_all(jobs):
+        procs = {}
+        try:
+            for name, argv in jobs.items():
+                procs[name] = (subprocess.Popen(
+                    [*py, *argv], stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, text=True, cwd=idt_root,
+                    env=env), time.perf_counter())
+            for name, (proc, t0) in procs.items():
+                out, err = proc.communicate(timeout=300)
+                secs[name] = time.perf_counter() - t0
+                if proc.returncode != 0:
+                    raise AssertionError(
+                        f"cli {name}: exit {proc.returncode}\n"
+                        f"{out[-2000:]}\n{err[-4000:]}")
+                outs[name] = out
+        finally:
+            for proc, _ in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
 
-    secs = {}
-    out, secs["info"] = run("info", fname)
-    info = json.loads(out)
-    out, secs["validate"] = run("validate", fname)
-    if not json.loads(out)["ok"]:
-        raise AssertionError(f"cli validate: {out}")
     binf = os.path.join(tmp, "native.bin")
-    _, secs["convert"] = run("convert", fname, binf)
-    out, secs["info bincode"] = run("info", binf, "--dims", str(DIM))
-    if json.loads(out)["points"] != info["points"]:
-        raise AssertionError(f"cli: the bincode copy differs: {out}")
-    out, secs["selftest"] = run("selftest", fname)
-    selftest = json.loads(out)
-    if selftest["recall_at_10"] < RECALL_FLOOR:
-        raise AssertionError(f"cli selftest: {selftest}")
     vecs, qf = os.path.join(tmp, "vecs.npy"), os.path.join(tmp, "q.npy")
     np.save(vecs, pts[:4096].cpu().numpy())
     np.save(qf, pts[:3].cpu().numpy())
     small = os.path.join(tmp, "small.npz")
-    out, secs["build"] = run("build", vecs, small, "--seed", "3")
-    built = json.loads(out)
-    out, secs["search"] = run("search", small, qf, "--k", "3")
-    rows = [json.loads(line) for line in out.strip().splitlines()]
+    run_all({"info": ["info", fname], "validate": ["validate", fname],
+             "convert": ["convert", fname, binf],
+             "selftest": ["selftest", fname],
+             "build": ["build", vecs, small, "--seed", "3"]})
+    run_all({"info bincode": ["info", binf, "--dims", str(DIM)],
+             "search": ["search", small, qf, "--k", "3"]})
+    info = json.loads(outs["info"])
+    if not json.loads(outs["validate"])["ok"]:
+        raise AssertionError(f"cli validate: {outs['validate']}")
+    if json.loads(outs["info bincode"])["points"] != info["points"]:
+        raise AssertionError(f"cli: the bincode copy differs: "
+                             f"{outs['info bincode']}")
+    selftest = json.loads(outs["selftest"])
+    if selftest["recall_at_10"] < RECALL_FLOOR:
+        raise AssertionError(f"cli selftest: {selftest}")
+    built = json.loads(outs["build"])
+    rows = [json.loads(line) for line in outs["search"].strip().splitlines()]
     if len(rows) != 3 or any(r["distances"][0] > 1e-3 for r in rows):
-        raise AssertionError(f"cli search: {out}")
+        raise AssertionError(f"cli search: {outs['search']}")
     _phase("cli", f"info {info['points']}x{info['dims']} layers "
            f"{info['layers']}; validate ok; convert to bincode and info; "
            f"selftest {selftest}; build {built['points']} points in "
@@ -1940,18 +1963,17 @@ def phase_sharded_checkpoint(torch, idt, launches, pts, queries, dev):
         raise AssertionError("sharded checkpoint: the file outlived the build")
     if not _same_sharded(torch, a, c):
         raise AssertionError("sharded checkpoint: resumed C differs from A")
+    refs, pad_pids = _pad_refs(torch, c, "sharded checkpoint C")
     nq = N_BLOCKS * BLOCK
     gt = idt.BruteForce(sub).search_batch(queries[:nq], K)[1].cpu().numpy()
     found = launches.run("sharded checkpoint search", lambda: c.search_batch(
         queries[:nq], k=K, ef=50)[1].cpu().numpy())
     recs = _recall_blocks(found, gt)
-    last_gids = c.gids[-1]
-    pads = int((last_gids < 0).sum())
-    in_last = np.isin(gt, last_gids.cpu().numpy())
-    last = float(sum(np.isin(gt[r][in_last[r]], found[r]).sum()
-                     for r in range(nq)) / in_last.sum())
+    pads = len(pad_pids)
+    last = _shard_recalls(c, found, gt)[-1]
     _phase("sharded checkpoint", f"{SHARD_CKPT_N} points, {pads} pad rows "
-           f"in the last shard: A {build_s:.1f} s "
+           f"in the last shard at pids {pad_pids}, {refs} pad references "
+           f"in C: A {build_s:.1f} s "
            f"({SHARD_CKPT_N / build_s:.1f} pts/s, peak {peak:.2f} GiB); B "
            f"stopped at half; file {size_mb:.1f} MB; saves every "
            f"{CKPT_EVERY} waves, seconds each: B "
@@ -1965,6 +1987,66 @@ def phase_sharded_checkpoint(torch, idt, launches, pts, queries, dev):
     _check_recall([last], "sharded checkpoint last shard")
     del a, c
     torch.cuda.empty_cache()
+
+    # D: the same points under dot (K2 with is_dot every wave), where a
+    # pad row in the graph would be every query's nearest point
+    cfg = idt.Config(seed=3, m=32, wave_size=4096, ef_search=50,
+                     metric="dot")
+    d, d_s, d_peak = _build_path(
+        torch, launches, "sharded checkpoint D",
+        lambda progress: idt.ShardedHnsw.build(sub, cfg, mesh=mesh,
+                                               progress=progress))
+    launches.need("sharded checkpoint D", ["fused_scan_bucket"],
+                  absent=["fused_scan_bucket_int_packed"])
+    refs, pad_pids = _pad_refs(torch, d, "sharded checkpoint D")
+    gt = idt.BruteForce(sub, metric="dot").search_batch(
+        queries[:nq], K)[1].cpu().numpy()
+    found = launches.run("sharded checkpoint D search", lambda: d.search_batch(
+        queries[:nq], k=K, ef=50)[1].cpu().numpy())
+    recs = _recall_blocks(found, gt)
+    per = _shard_recalls(d, found, gt)
+    counts = launches.paths["sharded checkpoint D"]
+    _phase("sharded checkpoint D", f"metric dot, {SHARD_CKPT_N} points: "
+           f"build {d_s:.1f} s ({SHARD_CKPT_N / d_s:.1f} pts/s, peak "
+           f"{d_peak:.2f} GiB); pad pids {pad_pids}, {refs} pad references; "
+           f"recall@10 blocks {[round(r, 4) for r in recs]}, over each "
+           f"shard's true neighbours {[round(r, 4) for r in per]}; launches "
+           f"{ {k: v for k, v in counts.items() if v} } [{CARD}]")
+    if per[-1] < np.mean(per[:-1]) - 0.02:
+        raise AssertionError(f"sharded checkpoint D: last shard recall "
+                             f"{per[-1]} below the others' {per[:-1]}")
+    del d
+    torch.cuda.empty_cache()
+
+
+def _pad_refs(torch, index, what: str):
+    """The links to or from pad rows over every shard and layer of a
+    ShardedHnsw (rows that hold one), and the last shard's pad pids; it
+    raises unless there are none and the pad rows are the last pids."""
+    refs = 0
+    for j, gids in enumerate(index.gids):
+        pad = gids < 0
+        for rows in [index.zero[j]] + [level[j] for level in index.layers]:
+            p = pad[:rows.shape[0]]
+            to_pad = (rows >= 0) & pad[rows.clamp(min=0).long()]
+            refs += int(to_pad[~p].any(1).sum())
+            refs += int((rows[p] >= 0).any(1).sum())
+    pad_pids = torch.nonzero(index.gids[-1] < 0).flatten().tolist()
+    n_s = index.gids[-1].shape[0]
+    if refs or pad_pids != list(range(n_s - len(pad_pids), n_s)):
+        raise AssertionError(f"{what}: {refs} pad references, pad pids "
+                             f"{pad_pids}")
+    return refs, pad_pids
+
+
+def _shard_recalls(index, found, gt) -> list:
+    """recall@10 over the true neighbours that lie in each shard."""
+    out = []
+    for gids in index.gids:
+        inside = np.isin(gt, gids.cpu().numpy())
+        out.append(float(sum(np.isin(gt[r][inside[r]], found[r]).sum()
+                             for r in range(len(gt))) / inside.sum()))
+    return out
 
 
 def phase_sharded_scan(torch, idt, launches, pts, queries, gt, dev):

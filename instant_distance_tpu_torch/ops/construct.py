@@ -227,8 +227,8 @@ def _quantize_for_scan(points, metric_name, real=None):
     (:func:`pack_operands`), for K2 per-point scales [1, Npad] with the
     metric's norms (:func:`bucket_operands`).  ``real`` (bool [N] or
     None): the rows that are points; the others (a padded shard's pad
-    rows) stay out of ``sg`` and get +inf norms, so no scan proposes
-    them."""
+    rows, last in its order, so no wave's prefix reaches them) stay out
+    of ``sg``."""
     if _use_pack(metric_name, points.shape[1]):
         codes_t, norms_r, sg = pack_operands(points, _FUSED_PACK_CB, real)
         return codes_t, sg, norms_r
@@ -238,10 +238,6 @@ def _quantize_for_scan(points, metric_name, real=None):
                else metric_name)
     codes_t, scales_r, norms_r = bucket_operands(
         codes, scales, (deq * deq).sum(1), _FUSED_CB, variant)
-    if real is not None:
-        keep = torch.nn.functional.pad(real, (0, norms_r.shape[1]
-                                              - real.shape[0]))
-        norms_r = torch.where(keep[None, :], norms_r, torch.inf)
     return codes_t, scales_r, norms_r
 
 
@@ -259,8 +255,7 @@ def _scan_operands(points, plan: _Plan, real=None):
     own mode (None for beam), ``flat`` the streamed-scan operands of the
     first ``exact_prefix`` points that a scan_fused build hands to the
     waves whose prefix is still below it (None without a prefix).
-    ``real`` as in :func:`_quantize_for_scan` (the streamed scan takes
-    it per wave instead)."""
+    ``real`` as in :func:`_quantize_for_scan`."""
     if not plan.search_mode.startswith("scan"):
         return None, None
     if plan.search_mode == "scan":
@@ -372,13 +367,11 @@ def _dedup_sorted(cd, cp):
     return torch.where(dup, torch.inf, cd), torch.where(dup, -1, cp)
 
 
-def _scan_pack(q, filled: int, codes_t, sg, norms_r, efc: int, qrows=None):
+def _scan_pack(q, filled: int, codes_t, sg, norms_r, efc: int):
     """K1 wave search: packed keys of the prefix, exact top-efc keys ->
-    candidate pids [W, <= efc], -1 for groups with no eligible point.
-    ``qrows`` (bool [W] or None) are the lanes that set the wave's
-    shared query scale."""
+    candidate pids [W, <= efc], -1 for groups with no eligible point."""
     lsub, cb = _FUSED_PACK_LSUB, _FUSED_PACK_CB
-    qc, qs = quantize_batch(q, qrows)
+    qc, qs = quantize_batch(q)
     denom = 2.0 * qs * sg
     col = torch.arange(norms_r.shape[1], device=q.device)[None, :]
     w2 = pack_w2(norms_r, denom, col < filled, lsub=lsub, cb=cb,
@@ -407,16 +400,14 @@ def _scan_bucket(q, filled: int, codes_t, scales_r, norms_r, efc: int,
 
 
 def _scan_stream(q, filled: int, codes, scales, norms, efc: int,
-                 metric_name, real=None):
+                 metric_name):
     """Streamed-scan wave search (JAX construct.py:461-486): the exact
-    top-efc of the int8 scores of pids below ``filled`` (and ``real``,
-    when given); ``codes`` may cover only the exact prefix."""
+    top-efc of the int8 scores of pids below ``filled``; ``codes`` may
+    cover only the exact prefix."""
     from ..models.scan import scan_candidates
 
     npts = codes.shape[0]
     prefix = torch.arange(npts, device=q.device) < filled
-    if real is not None:
-        prefix = prefix & real[:npts]
     _, cand_p = scan_candidates(
         q, codes, scales, norms, prefix,
         metric_name=(metric_name if isinstance(metric_name, str)
@@ -513,7 +504,7 @@ def search_select_core(wave_pids, filled: int, points, ops, adj=None,
                        efc: int, m: int, m0: int, links: int, heuristic,
                        max_iter_factor: int = 8, expand: int = 1,
                        hop_repair: int = 0, return_pool: bool = False,
-                       pd_dtype="bfloat16", real=None):
+                       pd_dtype="bfloat16"):
     """Wave search + forward selection (lib.rs:447-473): each wave
     point's selected forward neighbours [W, m0], -1/inf for padded
     lanes.  ``filled`` is the first pid of the wave: pids below it are
@@ -524,10 +515,7 @@ def search_select_core(wave_pids, filled: int, points, ops, adj=None,
     beam; ``links`` caps the columns of ``adj`` a walk or an extension
     reads (m0 at layer 0, m above).  ``return_pool`` returns the
     reranked, peer-merged pool instead of selecting
-    (:func:`repair_commit_core` selects).  ``real`` (bool [N] or None)
-    marks the rows that are points: the streamed scan proposes no other
-    row (the fused scans' operands already exclude them) and only real
-    lanes set K1's shared query scale."""
+    (:func:`repair_commit_core` selects)."""
     metric = resolve(metric_name)
     w = wave_pids.shape[0]
     wvalid = wave_pids >= 0
@@ -536,11 +524,9 @@ def search_select_core(wave_pids, filled: int, points, ops, adj=None,
     if search_mode.startswith("scan"):
         with _span("build.scan"):
             if search_mode == "scan":
-                cand_p = _scan_stream(q, filled, *ops, efc, metric_name,
-                                      real)
+                cand_p = _scan_stream(q, filled, *ops, efc, metric_name)
             elif _use_pack(metric_name, q.shape[1]):
-                qrows = None if real is None else real[wave_pids.clamp(min=0)]
-                cand_p = _scan_pack(q, filled, *ops, efc, qrows)
+                cand_p = _scan_pack(q, filled, *ops, efc)
             else:
                 cand_p = _scan_bucket(q, filled, *ops, efc, metric_name)
         if search_mode == "scan_fused" and cand_p.shape[1] < efc:
@@ -681,11 +667,10 @@ def _warn_reverse_drops(n_dropped: int, pend_cap: int,
 
 
 def _insert_wave(adj, adjd, wave, s: int, points, uppers, ops, flat_ops,
-                 plan: _Plan, links: int, real=None):
+                 plan: _Plan, links: int):
     """Search, select and commit one wave of pids (``wave``, -1 padded,
     lowest pid ``s`` in lane 0) in place; returns the reverse-edge
-    additions dropped, as a 0-d tensor.  ``real``: see
-    :func:`search_select_core`."""
+    additions dropped, as a 0-d tensor."""
     if (plan.search_mode == "scan_fused" and flat_ops is not None
             and s < plan.exact_prefix):
         mode_w, wops = "scan", flat_ops
@@ -697,8 +682,7 @@ def _insert_wave(adj, adjd, wave, s: int, points, uppers, ops, flat_ops,
     search = dict(common, search_mode=mode_w,
                   efc=plan.efc_scan if scan else plan.efc_beam,
                   m=plan.m, links=links,
-                  max_iter_factor=plan.max_iter_factor, expand=plan.expand,
-                  real=real)
+                  max_iter_factor=plan.max_iter_factor, expand=plan.expand)
     commit = dict(common, pend_cap=plan.pend_cap, rev_rounds=plan.rev_rounds)
     if plan.split and plan.sampling and scan:
         # the JAX split programs' order: pool first, repair in the commit
@@ -730,8 +714,8 @@ class _WaveGraph:
     operands, the adjacency [N+1, m0] and distance cache (row N is the
     padded-lane sink, both updated in place), the upper snapshots
     completed so far (top first) and the reverse-edge drops (a 0-d
-    tensor).  ``real`` (bool [N] or None) marks the rows that are points
-    (see :func:`search_select_core`)."""
+    tensor).  ``real`` (bool [N] or None) marks the rows that are points:
+    a padded shard's pad rows, last in its pid order, are not."""
 
     def __init__(self, pts, ops, flat_ops, adj, adjd, drops, layers=(),
                  real=None):
@@ -741,11 +725,15 @@ class _WaveGraph:
         self.real = real
 
     def insert(self, s: int, e: int, cap: int, plan: _Plan, links: int):
-        """Insert the wave of pids [s, e) (``cap`` lanes at most)."""
+        """Insert the wave of pids [s, e) (``cap`` lanes at most); a row
+        that is not ``real`` gets a -1 lane, so it selects nothing and
+        nothing selects it."""
+        wave = _wave_of(s, e, cap, self.pts.device)
+        if self.real is not None:
+            wave = torch.where(self.real[wave.clamp(min=0)], wave, -1)
         self.drops += _insert_wave(
-            self.adj, self.adjd, _wave_of(s, e, cap, self.pts.device), s,
-            self.pts, self.layers, self.ops, self.flat_ops, plan, links,
-            real=self.real)
+            self.adj, self.adjd, wave, s, self.pts, self.layers, self.ops,
+            self.flat_ops, plan, links)
 
 
 def _run_waves(graphs, plan: _Plan, ranges, wave_size: int, *,

@@ -81,8 +81,7 @@ def pack_operands(points, cb: int, real=None):
     f32: ONE global scale ``sg``, the codes transposed to [D, Npad] int8
     and the dequantized squared norms [1, Npad] with +inf padding, Npad
     the next multiple of ``cb``.  ``real`` (bool [N], default all) marks
-    the rows that are points: only they set ``sg``, and the others get
-    +inf norms, so the scan never proposes them.  Returns (codes_t,
+    the rows that are points: only they set ``sg``.  Returns (codes_t,
     norms_r, sg)."""
     amax = (points.abs() if real is None
             else torch.where(real[:, None], points.abs(), 0.0)).max()
@@ -90,8 +89,6 @@ def pack_operands(points, cb: int, real=None):
     codes = torch.clamp(torch.round(points / sg), -127, 127).to(torch.int8)
     deq = codes.float() * sg
     norms = (deq * deq).sum(1)
-    if real is not None:
-        norms = torch.where(real, norms, torch.inf)
     npad = (-points.shape[0]) % cb
     codes_t = torch.nn.functional.pad(codes, (0, 0, 0, npad)).T.contiguous()
     norms_r = torch.nn.functional.pad(norms, (0, npad),
@@ -136,15 +133,11 @@ def bucket_queries(queries, metric_name: str):
     return qc, qs
 
 
-def quantize_batch(queries, rows=None):
+def quantize_batch(queries):
     """Query-side operand: int8 codes [B, D] under ONE scale ``qs`` shared
     by the whole batch (the packed keys compare across queries' rows only
-    through ``denom = 2 * qs * sg``).  ``rows`` (bool [B], default all)
-    are the queries that set ``qs``; the others' codes saturate.
-    Returns (qc, qs)."""
-    amax = (queries.abs() if rows is None
-            else torch.where(rows[:, None], queries.abs(), 0.0)).max()
-    qs = torch.clamp(amax, min=1e-30) / 127.0
+    through ``denom = 2 * qs * sg``).  Returns (qc, qs)."""
+    qs = torch.clamp(queries.abs().max(), min=1e-30) / 127.0
     qc = torch.clamp(torch.round(queries / qs), -127, 127).to(torch.int8)
     return qc, qs
 

@@ -15,16 +15,21 @@ hop repair and exact-prefix hybrid.  Like the JAX sharded build it has no
 capped sample and no split.  Each rank builds its own shards, from the
 full point set.
 
-One fault of the JAX package is not copied: it pads the last shard with
-rows at ``_PAD_COORD`` and quantizes each shard's scan operands over all
+Two faults of the JAX package are not copied.  It pads the last shard
+with rows at ``_PAD_COORD``, mixes them into the shard's pid order and
+inserts them as graph nodes (under ``dot`` a pad row is every query's
+nearest point).  Here a padded shard takes its pad rows last in its
+order, after the local shuffle, so its entry point and upper-layer
+prefixes are real rows, no wave's scanned prefix reaches a pad row, and
+no wave lane is one: a pad row gets no links and no real row links to
+it.  The JAX package also quantizes each shard's scan operands over all
 rows, so in a padded shard the packed-key kernel's single scale is set
-by the pad rows and every real point quantizes to the all-zero code.
-Here the scan operands are taken over each shard's real rows only (pad
-rows get +inf norms, so no scan proposes them, and only real lanes set a
-wave's shared query scale); a shard without padding builds as in the
-JAX package.  The JAX search also hands ``hnsw_search`` the upper layers
-bottom first, where it reads them top first; the port descends top
-first, as ``Hnsw.search_batch`` does.
+by the pad rows and every real point quantizes to the all-zero code;
+here only real rows set it.  A shard without padding builds as in the
+JAX package, bit for bit.  A padded graph built by the JAX package and
+loaded here keeps its pad links.  The JAX search also hands
+``hnsw_search`` the upper layers bottom first, where it reads them top
+first; the port descends top first, as ``Hnsw.search_batch`` does.
 """
 
 from __future__ import annotations
@@ -205,9 +210,15 @@ class ShardedHnsw(_Sharded):
         lrng = np.random.default_rng(config.seed + 1)
         keys = lrng.integers(0, n_s, size=n_s)
         order = np.lexsort((np.arange(n_s), keys))
+        # a shard that holds pad rows takes them last (a stable partition
+        # of the shuffled order), so its pid 0 and every upper layer's
+        # prefix are real rows; a shard without them keeps the JAX order
+        pad_last = shard_gids[:, order] < 0
+        orders = np.stack([np.concatenate([order[~p], order[p]])
+                           for p in pad_last])
         local = list(mesh.shard_ids())
-        shard_pts = shard_pts[local][:, order]
-        shard_gids = shard_gids[local][:, order]
+        shard_pts = shard_pts[np.asarray(local)[:, None], orders[local]]
+        shard_gids = shard_gids[np.asarray(local)[:, None], orders[local]]
         del pts_flat, gids_flat
 
         pts_t = [torch.from_numpy(np.ascontiguousarray(p)).to(dev)
@@ -216,7 +227,8 @@ class ShardedHnsw(_Sharded):
                   for g, dev in zip(shard_gids, mesh.devices)]
         zero, layers, reverse_drops = _build_sharded(
             pts_t, gids_t, config, mesh, progress=progress,
-            checkpoint=checkpoint, checkpoint_every=checkpoint_every)
+            checkpoint=checkpoint, checkpoint_every=checkpoint_every,
+            padded=pad > 0)
         idx = cls(pts_t, zero, layers, gids_t, config, mesh, values=values)
         idx.reverse_drops = reverse_drops
         return idx
@@ -389,10 +401,13 @@ def _save_sharded_ckpt(path: str, key: str, graphs, sizes, m: int, li: int,
 
 def _build_sharded(shard_pts, shard_gids, config: Config, mesh: Mesh,
                    progress=None, checkpoint: Optional[str] = None,
-                   checkpoint_every: int = 64):
+                   checkpoint_every: int = 64, padded: bool = False):
     """Build this process's shards (``shard_pts[j]`` [n_s, D] on
     ``mesh.devices[j]``, ``shard_gids[j]`` -1 on pad rows) with every
-    shard advancing one wave at a time.
+    shard advancing one wave at a time.  No wave lane is a pad row, so
+    pad rows link to nothing and nothing links to them.  ``padded``
+    (some shard of the mesh holds pad rows, last in its order) marks the
+    checkpoint key, so neither package resumes the other's padded state.
 
     Returns ``(zero [per shard], layers [level][shard], reverse_drops)``
     with ``layers[l - 1]`` level l; ``reverse_drops`` is summed over all
@@ -418,7 +433,8 @@ def _build_sharded(shard_pts, shard_gids, config: Config, mesh: Mesh,
            f"{cfg.wave_size}:{plan.pend_cap}:{plan.rev_rounds}:"
            f"{cfg.max_iter_factor}:{cfg.construct_expand}:"
            f"{plan.search_mode}:{cfg.select_pd_dtype}:{plan.exact_prefix}:"
-           f"{plan.hop}:{_pool_of(cfg, plan.search_mode)}")
+           f"{plan.hop}:{_pool_of(cfg, plan.search_mode)}"
+           + (":padlast" if padded else ""))
     path = None if checkpoint is None else _ckpt_path(checkpoint, mesh)
     state = None
     if path is not None and os.path.exists(path):

@@ -17,7 +17,13 @@ four shards on one device.
 * The padded build (4,093 points on 4 shards): the JAX build quantizes
   the last shard's real rows to all-zero codes (recall 0.948, 0.790 over
   the last shard's true neighbours, on this data and config); the port's
-  reaches >= 0.99 and >= 0.97, and no real row quantizes to zero.
+  reaches >= 0.99 and >= 0.97, and no real row quantizes to zero.  The
+  JAX build also links pad rows into the last shard's graph; the port
+  puts them last in the shard's order (shards 0-2 keep the JAX gids)
+  and keeps them out of every list, here and in ``dot`` and ``cosine``
+  builds of 1,021 points, with the last shard's recall over its true
+  neighbours within 0.02 of the other shards' mean.  The padded dump
+  loads in the JAX package.
 * Checkpoints (tests/test_sharded_checkpoint.py's sizes): a build
   stopped from ``progress`` and resumed equals the uninterrupted one bit
   for bit, the file is gone, and a stale key is ignored.
@@ -80,6 +86,8 @@ KW = dict(seed=11, m=8, wave_size=64, ef_construction=24, ef_search=32,
           construct_mode="scan_fused")
 #: The padded build of the motivating measurement: 4 * 1024 - 3 points.
 PAD_N = 4093
+#: The padded dot and cosine builds: 4 * 256 - 3 points.
+PAD_SMALL = 1021
 #: Zero-layer edges the port's shard graphs share with the JAX ones
 #: (the single build's floor; measured 1.0 in every shard).
 OVERLAP_FLOOR = 0.99
@@ -174,9 +182,61 @@ def _check_search(ref, queries):
     return port
 
 
-def _check_padded():
+def _jax_shard_gids(n):
+    """The JAX package's shard gids for ``n`` points on S shards, as its
+    ``ShardedHnsw.build`` makes them (parallel/sharded.py:126-147)."""
+    n_s = -(-n // S)
+    perm = np.random.default_rng(KW["seed"]).permutation(n)
+    gids = np.concatenate([perm, np.full(S * n_s - n, -1)]).reshape(S, n_s)
+    keys = np.random.default_rng(KW["seed"] + 1).integers(0, n_s, size=n_s)
+    return gids[:, np.lexsort((np.arange(n_s), keys))]
+
+
+def _shard_recall(found, gt, gids):
+    """recall@10 over the true neighbours that lie in each shard."""
+    out = []
+    for g in gids:
+        inside = np.isin(gt, g)
+        out.append(sum(np.isin(gt[r][inside[r]], found[r]).sum()
+                       for r in range(len(gt))) / inside.sum())
+    return out
+
+
+def _check_pads_out(idx, pts, queries, metric):
+    """The shards of a padded build: shards 0-2 hold the JAX package's
+    gids, the last one its real rows in the JAX order and then its 3 pad
+    rows; no list links to a pad row and a pad row's lists are empty;
+    the last shard's recall is within 0.02 of the others' mean.  Returns
+    (found, truth, per-shard recall)."""
+    gids = [g.numpy() for g in idx.gids]
+    want = _jax_shard_gids(len(pts))
+    for j in range(S - 1):
+        np.testing.assert_array_equal(gids[j], want[j], err_msg=metric)
+    w = want[-1]
+    np.testing.assert_array_equal(
+        gids[-1], np.concatenate([w[w >= 0], w[w < 0]]), err_msg=metric)
+    pads = np.flatnonzero(gids[-1] < 0)
+    n_s = len(gids[-1])
+    assert pads.tolist() == [n_s - 3, n_s - 2, n_s - 1], (metric, pads)
+    for rows in [idx.zero[-1]] + [level[-1] for level in idx.layers]:
+        rows = rows.numpy()
+        real = gids[-1][:rows.shape[0]] >= 0
+        assert not np.isin(rows[real], pads).any(), metric
+        assert (rows[~real] == -1).all(), metric
+    found = idx.search_batch(queries, k=10)[1].numpy()
+    gt = BruteForce(pts, metric=metric, device="cpu").search_batch(
+        queries, 10)[1].numpy()
+    per = _shard_recall(found, gt, gids)
+    assert per[-1] >= np.mean(per[:-1]) - 0.02, (metric, per)
+    return found, gt, per
+
+
+def _check_padded(tmp):
     """The last shard of 4,093 points holds 3 pad rows: the port's scan
-    operands leave them out, so its real rows keep their codes."""
+    operands leave them out, so its real rows keep their codes; its pad
+    rows come last and stay out of the graph, under sqeuclidean and, at
+    1,021 points, under dot and cosine.  The padded dump loads in the
+    JAX package."""
     rng = np.random.default_rng(0)
     pts = rng.random((PAD_N, D), dtype=np.float32)
     queries = rng.random((256, D), dtype=np.float32)
@@ -191,12 +251,18 @@ def _check_padded():
     jcodes = np.asarray(jconstruct._quantize_for_scan(
         jnp.asarray(last_pts.numpy()), fused=True)[0])
     assert not jcodes[:, :last_pts.shape[0]].T[real.numpy()].any()
-    found = idx.search_batch(queries, k=10)[1].numpy()
-    rec, gt = _recall(found, pts, queries)
-    in_last = np.isin(gt, last_gids.numpy())
-    last = sum(np.isin(gt[r][in_last[r]], found[r]).sum()
-               for r in range(len(gt))) / in_last.sum()
+    found, gt, per = _check_pads_out(idx, pts, queries, "sqeuclidean")
+    rec, last = recall_at_k(found, gt, 10), per[-1]
     assert rec >= 0.99 and last >= 0.97, (rec, last)
+    fname = os.path.join(tmp, "padded.npz")
+    idx.dump(fname)
+    back = jser.load_sharded(fname, mesh=jax_mesh(S))
+    np.testing.assert_array_equal(np.asarray(back.gids), idx.arrays()[3])
+    for metric in ("dot", "cosine"):
+        sub = pts[:PAD_SMALL]
+        _check_pads_out(ShardedHnsw.build(
+            sub, tconfig.Config(metric=metric, **KW), mesh=_mesh()),
+            sub, queries, metric)
 
 
 class _Stop(RuntimeError):
@@ -458,10 +524,10 @@ def check_cpu():
     pts, queries = _data(N, 11)
     ref = _check_build(pts, queries)
     port = _check_search(ref, queries)
-    _check_padded()
     _check_sharded_scan(queries)
     _check_replicated(pts, queries)
     with tempfile.TemporaryDirectory() as tmp:
+        _check_padded(tmp)
         _check_checkpoint(tmp)
         _check_files(ref, port, queries, tmp)
         _check_two_processes(tmp)
