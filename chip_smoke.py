@@ -8,11 +8,14 @@ against its plain torch version:
   1. device   — needs CUDA; prints the card's name and power limit;
   2. build    — compiles csrc/*.cu (one nvcc per source, in parallel),
                 prints each kernel's registers and spills (ptxas) and its
-                tensor-core and __dp4a instruction counts (cuobjdump
-                -sass), and fails unless every scan kernel (K1/K6, K2,
-                K3, K5) runs on the int8 tensor cores with no __dp4a;
-                prints K4's shared memory a block and blocks an SM at
-                the packed calls' shapes;
+                tensor-core, TMA and __dp4a instruction counts (cuobjdump
+                -sass), and fails unless K1/K6 and K2/K3 run on the Hopper
+                tile (warpgroup MMA, IGMMA, fed by TMA loads, UTMALDG, and
+                no mma.sync IMMA) and K5 on the mma.sync tile (IMMA), none
+                with a __dp4a; prints the Hopper tile's shared memory a
+                block and stages at the paths' widths, and K4's shared
+                memory a block and blocks an SM at the packed calls'
+                shapes;
   3. kernels  — each kernel (K1 packed keys, K2 bucket, K3 bucket_int,
                 K5 topt, K4 walk, K6 probe in its three modes) vs its
                 plain version on random inputs from a seeded generator on
@@ -233,13 +236,18 @@ LADDER_SCAN_KW = dict(k=K, fused="bucket_pack", cb=8192, inner=2, ef=32)
 LADDER_ROWS, LADDER_HEADROOM = 1024, 4_000_000_000
 LADDER_PACKED_FALLBACK = 500_000
 
-#: Kernels whose product runs on the int8 tensor cores (K1 with K6; K2
-#: and K3, one template; K5): the build phase fails if their machine code
-#: holds no IMMA/IGMMA or any __dp4a (IDP.4A).  Mangled, a template
-#: kernel's name is its length, the name and "I" (its template arguments
-#: follow).
-TENSOR_CORE_KERNELS = ("18packed_scan_kernelI", "13bucket_kernelI",
-                       "11topt_kernelI")
+#: Kernels on the Hopper tile (csrc/wgmma_tile.cuh: K1 with K6; K2 and K3,
+#: one template): the build phase fails unless their machine code holds
+#: the warpgroup MMA (IGMMA) and TMA loads (UTMALDG), and no mma.sync
+#: (IMMA) or __dp4a (IDP.4A).  Mangled, a template kernel's name is its
+#: length, the name and "I" (its template arguments follow).
+WGMMA_KERNELS = ("18packed_scan_kernelI", "13bucket_kernelI")
+#: Kernels on the mma.sync tile (csrc/mma_tile.cuh: K5): IMMA and no
+#: __dp4a.
+IMMA_KERNELS = ("11topt_kernelI",)
+#: The widths whose Hopper-tile plan the build phase prints: the paths'
+#: 128, 300 and 960, and 1536, where the query tile streams.
+PLAN_WIDTHS = (DIM, DIM300, 960, 1536)
 #: K3's and K5's times at their record cases on the __dp4a tile that the
 #: tensor-core tile replaced (this script on an NVIDIA H100 80GB HBM3 at
 #: 700 W), printed beside the new times.
@@ -340,10 +348,11 @@ def _ptxas_summary(log: str) -> list:
 
 
 def _sass_check(build) -> list:
-    """Tensor-core (IMMA, HMMA, IGMMA, HGMMA) and __dp4a (IDP.4A)
-    instruction counts of every kernel in the built libraries, from
-    ``cuobjdump -sass``.  Raises if a kernel of TENSOR_CORE_KERNELS lacks
-    tensor-core instructions or holds a __dp4a."""
+    """Tensor-core (IMMA, HMMA, IGMMA, HGMMA), TMA load (UTMALDG) and
+    __dp4a (IDP.4A) instruction counts of every kernel in the built
+    libraries, from ``cuobjdump -sass``.  Raises unless each kernel of
+    WGMMA_KERNELS holds IGMMA and UTMALDG and no IMMA, and each of
+    IMMA_KERNELS IMMA, none of them a __dp4a."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     tool = os.path.join(CUDA_HOME, "bin", "cuobjdump")
@@ -359,19 +368,47 @@ def _sass_check(build) -> list:
                 fn = m.group(1)
                 counts[fn] = collections.Counter()
                 continue
-            m = re.search(r"\b(IMMA|HMMA|IGMMA|HGMMA|IDP\.?4A)[.\w]*", line)
+            m = re.search(r"\b(IMMA|HMMA|IGMMA|HGMMA|UTMALDG|IDP\.?4A)"
+                          r"[.\w]*", line)
             if m and fn:
                 counts[fn][m.group(0)] += 1
     lines = []
     for fn, c in counts.items():
-        tc = sum(v for k, v in c.items() if "MMA" in k)
-        dp4a = sum(v for k, v in c.items() if "IDP" in k)
-        if any(k in fn for k in TENSOR_CORE_KERNELS) and (not tc or dp4a):
-            raise AssertionError(f"{fn}: {dict(c)} (want tensor-core "
-                                 "instructions and no IDP.4A)")
+        def has(op):
+            return sum(v for k, v in c.items()
+                       if k.split(".")[0].startswith(op))
+
+        if any(k in fn for k in WGMMA_KERNELS) and (
+                not has("IGMMA") or not has("UTMALDG") or has("IMMA")
+                or has("IDP")):
+            raise AssertionError(f"{fn}: {dict(c)} (want IGMMA and UTMALDG, "
+                                 "no IMMA and no IDP.4A)")
+        if any(k in fn for k in IMMA_KERNELS) and (not has("IMMA")
+                                                   or has("IDP")):
+            raise AssertionError(f"{fn}: {dict(c)} (want IMMA and no "
+                                 "IDP.4A)")
         if c:
             lines.append(f"{fn}: {dict(c)}")
     return lines
+
+
+def _tile_plans(build) -> str:
+    """The Hopper tile's plan (csrc/wgmma_tile.cuh) at PLAN_WIDTHS:
+    threads and shared memory a block, stages of the ring, the query tile
+    resident or streamed."""
+    import ctypes
+
+    from instant_distance_tpu_torch.ops.scan_kernel import padded_width
+
+    lib = build.library()
+    out = []
+    for d in PLAN_WIDTHS:
+        plan = (ctypes.c_int * 5)()
+        lib.idt_wg_plan(padded_width(d), plan)
+        out.append(f"D={d}: {plan[4]} threads and {plan[0]} B a block, "
+                   f"{plan[3]} d chunks, {plan[1]} stages, query tile "
+                   + ("resident" if plan[2] else "streamed"))
+    return "; ".join(out)
 
 
 # ---------------------------------------------------------------------------
@@ -438,6 +475,19 @@ KERNEL_CASES = (
      _padded(N_POINTS, BUILD_CB), BUILD_LSUB, BUILD_CB, {"probe": "mm"}),
     ("K2 build wave min", "fused_scan_probe", 4096, DIM300,
      _padded(N_POINTS, BUILD_CB), BUILD_LSUB, BUILD_CB, {"probe": "min"}),
+)
+#: The ladder's kernel shapes at D = 960 (GIST1M): K1 and K3 in its
+#: ScanIndex batches at lsub 16 and 32 (cb 8192, points padded to cb *
+#: inner), K2 in its build's waves.  The ladder phase holds K1 and K3 on
+#: its scan's own operands and K2 on random ones of this shape;
+#: tools/time_torch_kernels.py times all three on random operands.
+LADDER_CASES = (
+    ("ladder scan lsub 16", "fused_scan_bucket_int_packed", N_QUERIES, 960,
+     _padded(N_POINTS, 8192 * 2), 16, 8192, {}),
+    ("ladder scan lsub 32", "fused_scan_bucket_int", N_QUERIES, 960,
+     _padded(N_POINTS, 8192 * 2), 32, 8192, {}),
+    ("ladder build wave", "fused_scan_bucket", 4096, 960,
+     _padded(N_POINTS, BUILD_CB), BUILD_LSUB, BUILD_CB, {"is_dot": False}),
 )
 #: Kernels whose operands are K1's (qc; w2, codes_t).
 _K1_OPERANDS = ("fused_scan_bucket_int_packed", "fused_scan_probe")
@@ -743,17 +793,22 @@ def phase_walk(torch, dev):
 
 class Launches:
     """Kernel launches per path: each path runs with every count set to 0
-    just before it and read just after."""
+    just before it and read just after; beside them the point-major code
+    copies the path made (``scan_kernel.point_major``: one per index or
+    build operands, none per call)."""
 
     def __init__(self, tsk):
         self.tsk = tsk
         self.paths = {}
+        self.copies = {}
 
     def run(self, path: str, fn):
         for name in self.tsk.launches:
             self.tsk.launches[name] = 0
+        made = self.tsk.point_major_copies
         out = fn()
         self.paths[path] = dict(self.tsk.launches)
+        self.copies[path] = self.tsk.point_major_copies - made
         return out
 
     def total(self, kernel: str) -> int:
@@ -1419,11 +1474,10 @@ def phase_ladder(torch, idt, tsk, launches, dev):
     _hold_kernel(torch, tsk, "ladder scan lsub 32", "fused_scan_bucket_int",
                  (qc,), (w, codes_t), dict(lsub=32, cb=cb))
     del scan, codes_t, norms_r, w, qc
-    rows, shared, kw = _operands(torch, tsk, dev, "fused_scan_bucket", 4096,
-                                 d, _padded(n, BUILD_CB), BUILD_LSUB,
-                                 BUILD_CB, {"is_dot": False})
-    _hold_kernel(torch, tsk, "ladder build wave", "fused_scan_bucket", rows,
-                 shared, kw)
+    label, kernel, b, d_w, n_w, lsub, cb, opts = LADDER_CASES[2]
+    rows, shared, kw = _operands(torch, tsk, dev, kernel, b, d_w, n_w, lsub,
+                                 cb, opts)
+    _hold_kernel(torch, tsk, label, kernel, rows, shared, kw)
     del rows, shared
     torch.cuda.empty_cache()
 
@@ -2226,6 +2280,8 @@ def main(argv=None) -> int:
            + (" | ".join(_ptxas_summary(_build.build_log))
               or "none (the libraries were built before)"))
     _phase("build", "sass: " + " | ".join(_sass_check(_build)))
+    _phase("build", "Hopper tile (K1/K6, K2/K3; one block an SM): "
+           + _tile_plans(_build))
     from instant_distance_tpu_torch.ops import walk_kernel as wk
 
     _phase("build", f"K4 ({wk.STAGE_BYTES} B of staged codes at most): "
@@ -2401,6 +2457,8 @@ def main(argv=None) -> int:
     _phase("launches", "; ".join(
         f"{path}: { {k: v for k, v in c.items() if v} }"
         for path, c in launches.paths.items()))
+    _phase("launches", "point-major code copies: " + "; ".join(
+        f"{path}: {n}" for path, n in launches.copies.items() if n))
     _phase("wall", f"{time.perf_counter() - t_start:.1f} s, the kernels' "
            "build included")
     out = []

@@ -36,23 +36,26 @@
 // cores, K2/K5's epilogue (about nine CUDA-core operations an element,
 // one of them the int-to-float conversion) is of the same order.
 //
-// What the design does about it.  All three run on the int8 tensor-core
-// tile of mma_tile.cuh (mma.sync m16n8k32, the query tile staged in
-// shared memory, code tiles with their per-point rows double-buffered
-// with cp.async and transposed in shared memory, query blocks fastest in
-// the grid), and keep the running min and argmin of each accumulator
-// fragment's (query, group) pairs beside the accumulators in registers
-// across the lsub slabs, so the [B, N] distance tile never reaches
-// memory.  K2 and K3 are one kernel, bucket_kernel<E>: a block owns 128
-// queries x 64 stride groups and writes their minima; K3's epilogue
-// (E = kInt) is one int32 subtract on the rank row w.  K5's top-T needs
-// every group minimum of a cb block for a query, so its block owns 128
-// queries x one whole cb block and walks the block's 64-column tiles with
-// the tile: after each, K2's epilogue has the tile's 128 x 64 minima,
-// they go to shared memory, and one thread a query merges them into the
-// query's running top-T list there, sorted by (value, id).  The top T of
-// a union is the top T of the union of each part's top T, so the merge
-// is exact; only the T results reach memory, as in the JAX kernel.
+// What the design does about it.  K2 and K3 are one kernel,
+// bucket_kernel<E>, on the Hopper tile of wgmma_tile.cuh (wgmma fed by
+// TMA: the query tile resident in shared memory, point-major code chunks
+// and each slab's per-point rows through mbarrier rings filled by a
+// producer warp, two consumer warpgroups whose epilogues overlap each
+// other's products): a block owns 128 queries x 128 stride groups and
+// keeps the running min and argmin of each accumulator's (query, group)
+// pair beside the accumulators in registers across the lsub slabs, so
+// the [B, N] distance tile never reaches memory, and writes the groups'
+// minima.  K3's epilogue (E = kInt) is one int32 subtract on the rank row
+// w.  K5 stays on the mma.sync tile of mma_tile.cuh (codes d-major, staged
+// by cp.async and transposed in shared memory), with the same per-element
+// arithmetic (f32_value, min_update): its top-T needs every group minimum
+// of a cb block for a query, so its block owns 128 queries x one whole cb
+// block and walks the block's 64-column tiles with the tile: after each,
+// the tile's 128 x 64 minima go to shared memory, and one thread a query
+// merges them into the query's running top-T list there, sorted by
+// (value, id).  The top T of a union is the top T of the union of each
+// part's top T, so the merge is exact; only the T results reach memory,
+// as in the JAX kernel.
 
 #include <climits>
 #include <cmath>
@@ -62,10 +65,12 @@
 #include <cuda_runtime.h>
 
 #include "mma_tile.cuh"
+#include "wgmma_tile.cuh"
 
 namespace {
 
 namespace mma = idt::mma;
+namespace wg = idt::wg;
 
 enum Epilogue { kL2 = 0, kDot = 1, kInt = 2 };
 
@@ -95,47 +100,62 @@ __device__ __forceinline__ void min_update(float v, int t, float& best,
   }
 }
 
-__device__ __forceinline__ void min_update(int32_t v, int t, int32_t& best,
-                                           int& am) {
-  if (v < best) {
-    best = v;
-    am = t;
-  }
+// min_update with the argmin in 16-bit half h of am2 (slab t < 2^16): two
+// running argmins a register, so that the state of K2 and K3 fits the
+// Hopper tile's registers beside the accumulators.  Written as selects:
+// as branches (min_update's form) the compiler gives every element its
+// own divergent block, and the elements no longer overlap.
+__device__ __forceinline__ uint32_t set_half(uint32_t am2, int t, int h) {
+  return __byte_perm(am2, static_cast<uint32_t>(t), h ? 0x5410 : 0x3254);
 }
 
-// One thread's running minima over its accumulator fragments'
-// (query, group) pairs: [m16 tile i][n8 tile j][fragment element e].
+__device__ __forceinline__ void min_update(float v, int t, float& best,
+                                           uint32_t& am2, int h) {
+  const bool lt = v < best;
+  best = lt | isnan(v) ? v : best;
+  am2 = lt ? set_half(am2, t, h) : am2;
+}
+
+__device__ __forceinline__ void min_update(int32_t v, int t, int32_t& best,
+                                           uint32_t& am2, int h) {
+  const bool lt = v < best;
+  best = lt ? v : best;
+  am2 = lt ? set_half(am2, t, h) : am2;
+}
+
+int launch_status() { return static_cast<int>(cudaGetLastError()); }
+
+// K5's running minima of one thread over its mma.sync accumulator
+// fragments' (query, group) pairs: [m16 tile i][n8 tile j][fragment
+// element e].
 template <Epilogue E>
 struct SlabMin {
-  float qsv[2][2];                       // [m16 tile][row half]; f32 only
-  Value<E> best[2][4][4];
+  float qsv[2][2];                       // [m16 tile][row half]
+  float best[2][4][4];
   int am[2][4][4];
 
   __device__ __forceinline__ SlabMin(const mma::Tile& tile,
                                      const float* __restrict__ qs) {
-    if constexpr (E != kInt) {
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int q = tile.q0 + tile.row(i, 2 * h);
-          qsv[i][h] = q < tile.b ? qs[q] : 0.0f;
-        }
-    }
+      for (int h = 0; h < 2; ++h) {
+        const int q = tile.q0 + tile.row(i, 2 * h);
+        qsv[i][h] = q < tile.b ? qs[q] : 0.0f;
+      }
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          if constexpr (E == kInt) best[i][j][e] = INT_MAX;
-          else best[i][j][e] = INFINITY;
+          best[i][j][e] = INFINITY;
           am[i][j][e] = 0;
         }
   }
 
   // Slab t's values from its accumulators and its transposed per-point
-  // rows (K2/K5: scales, norms; K3: w).
+  // rows (scales, norms).
   __device__ __forceinline__ void update(const mma::Tile& tile, int t,
                                          const mma::Acc& acc,
                                          const uint32_t* rows_t) {
@@ -144,71 +164,108 @@ struct SlabMin {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = tile.col(j, e);
-        if constexpr (E == kInt) {
-          const uint32_t wv = rows_t[c];
+        const float s = __uint_as_float(rows_t[c]);
+        const float nm = __uint_as_float(rows_t[mma::kBO + c]);
 #pragma unroll
-          for (int i = 0; i < 2; ++i)
-            min_update(static_cast<int32_t>(wv - static_cast<uint32_t>(acc[i][j][e])),
-                       t, best[i][j][e], am[i][j][e]);
-        } else {
-          const float s = __uint_as_float(rows_t[c]);
-          const float nm = __uint_as_float(rows_t[mma::kBO + c]);
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-            min_update(f32_value<E>(qsv[i][e >> 1], s, nm, acc[i][j][e]), t,
-                       best[i][j][e], am[i][j][e]);
-        }
+        for (int i = 0; i < 2; ++i)
+          min_update(f32_value<E>(qsv[i][e >> 1], s, nm, acc[i][j][e]), t,
+                     best[i][j][e], am[i][j][e]);
       }
-  }
-
-  // Whether fragment (i, j, e)'s minimum names a point: finite (K2/K5),
-  // under the rank limit (K3).
-  __device__ __forceinline__ bool found(int i, int j, int e) const {
-    if constexpr (E == kInt) return best[i][j][e] < kIntLimit;
-    else return isfinite(best[i][j][e]);
   }
 };
 
-// K2 (E = kL2 / kDot) and K3 (E = kInt): one block owns 128 queries x 64
+// -- K2 and K3: the Hopper tile
+
+// K2 (E = kL2 / kDot) and K3 (E = kInt): one block owns 128 queries x 128
 // stride groups and writes each group's minimum and the point reaching
-// it.  K2's per-point rows are scales and norms, K3's the rank row w
-// (qs unused).
+// it.  K2's per-point rows are scales and norms, K3's the rank row w (qs
+// unused).  A consumer thread's accumulator r stands for the (query,
+// group) pair (row(r), col(r)) in every slab; its argmin slab is half
+// r % 2 of am2[r / 2] (the wrapper refuses lsub > 2^16).
 template <Epilogue E>
-__global__ void __launch_bounds__(mma::kThreads)
-bucket_kernel(const int8_t* __restrict__ qc, const float* __restrict__ qs,
-              const int8_t* __restrict__ codes_t,
-              const uint32_t* __restrict__ row0,
-              const uint32_t* __restrict__ row1, Value<E>* __restrict__ od,
-              int32_t* __restrict__ oi, int b, int d, int n, int lsub, int cb,
-              int vec) {
+__global__ void __launch_bounds__(wg::kThreads, 1)
+bucket_kernel(const __grid_constant__ wg::Maps maps,
+              const float* __restrict__ qs, Value<E>* __restrict__ od,
+              int32_t* __restrict__ oi, int b, int dpad, int n, int lsub,
+              int cb) {
   extern __shared__ __align__(16) uint8_t smem[];
-  const mma::Tile tile(smem, b, d, n, lsub, cb, vec != 0);
-  SlabMin<E> m(tile, qs);
+  const wg::Tile tile(smem, b, dpad, n, lsub, cb);
 
-  const uint32_t* const rows[mma::kMaxRows] = {row0, row1};
-  tile.run(qc, codes_t, rows, E == kInt ? 1 : 2,
-           [&](int t, const mma::Acc& acc, const uint32_t* rows_t) {
-             m.update(tile, t, acc, rows_t);
-           });
-
+  Value<E> best[wg::kAcc];
+  uint32_t am2[wg::kAcc / 2];          // argmin slabs, two a register
+  float qsv[2];                        // the thread's two query rows
+  tile.run(
+      maps, E == kInt ? 1 : 2,
+      [&] {
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+        for (int r = 0; r < wg::kAcc; ++r) {
+          if constexpr (E == kInt) best[r] = INT_MAX;
+          else best[r] = INFINITY;
+          am2[r / 2] = 0;
+        }
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int q = tile.q0 + tile.row(i, e);
-      if (q >= b) continue;
+        for (int h = 0; h < 2; ++h) {
+          const int q = tile.q0 + wg::Tile::row(2 * h);
+          qsv[h] = E != kInt && q < b ? qs[q] : 0.0f;
+        }
+      },
+      [&](int t, const uint32_t (&acc)[wg::kAcc], const uint32_t* rows) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int o = tile.o0 + tile.col(j, e);
-        if (o >= tile.ncol) continue;
-        const long long idx = static_cast<long long>(q) * tile.ncol + o;
-        od[idx] = m.best[i][j][e];
-        oi[idx] = m.found(i, j, e)
-                      ? static_cast<int32_t>(tile.point(o, m.am[i][j][e]))
-                      : -1;
-      }
-    }
+        for (int j = 0; j < wg::kAcc / 4; ++j) {
+          const int c = wg::Tile::col(4 * j);
+          const uint2 r0 = *reinterpret_cast<const uint2*>(rows + c);
+          const uint2 r1 = *reinterpret_cast<const uint2*>(rows + wg::kBN + c);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = 4 * j + e;
+            const uint32_t w0 = (e & 1) ? r0.y : r0.x;
+            if constexpr (E == kInt) {
+              min_update(static_cast<int32_t>(w0 - acc[r]), t, best[r],
+                         am2[r / 2], e & 1);
+            } else {
+              const uint32_t w1 = (e & 1) ? r1.y : r1.x;
+              min_update(f32_value<E>(qsv[e >> 1], __uint_as_float(w0),
+                                      __uint_as_float(w1),
+                                      static_cast<int32_t>(acc[r])),
+                         t, best[r], am2[r / 2], e & 1);
+            }
+          }
+        }
+      },
+      [&] {
+#pragma unroll
+        for (int r = 0; r < wg::kAcc; ++r) {
+          const int q = tile.q0 + wg::Tile::row(r);
+          const int c = wg::Tile::col(r);
+          if (q >= b || c >= tile.width) continue;
+          const long long idx = static_cast<long long>(q) * tile.ncol + tile.o0 + c;
+          bool found;
+          if constexpr (E == kInt) found = best[r] < kIntLimit;
+          else found = isfinite(best[r]);
+          const int am = (am2[r / 2] >> (16 * (r & 1))) & 0xFFFF;
+          od[idx] = best[r];
+          oi[idx] = found ? tile.p0 + am * tile.ct + c : -1;
+        }
+      });
 }
+
+template <Epilogue E>
+int launch_bucket(const void* qc, const void* qs, const void* codes,
+                  const void* row0, const void* row1, void* od, void* oi,
+                  int b, int dpad, int n, int lsub, int cb, cudaStream_t s) {
+  wg::Maps maps;
+  unsigned blocks;
+  int smem;
+  cudaError_t err = wg::prepare(bucket_kernel<E>, &maps, qc, codes, row0,
+                                row1, b, dpad, n, lsub, cb, &blocks, &smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  bucket_kernel<E><<<blocks, wg::kThreads, smem, s>>>(
+      maps, static_cast<const float*>(qs), static_cast<Value<E>*>(od),
+      static_cast<int32_t*>(oi), b, dpad, n, lsub, cb);
+  return launch_status();
+}
+
+// -- end of K2 and K3
 
 // (value, id) order of the top-T rounds: smaller value, then smaller id.
 __device__ __forceinline__ bool before(float v, int32_t id, float bv,
@@ -375,51 +432,37 @@ topt_kernel(const int8_t* __restrict__ qc, const float* __restrict__ qs,
   }
 }
 
-int launch_status() { return static_cast<int>(cudaGetLastError()); }
-
-template <Epilogue E>
-int launch_bucket(const void* qc, const void* qs, const void* codes_t,
-                  const void* row0, const void* row1, void* od, void* oi,
-                  int b, int d, int n, int lsub, int cb, cudaStream_t s) {
-  unsigned blocks;
-  int smem;
-  cudaError_t err = mma::prepare(bucket_kernel<E>, b, d, n, lsub, &blocks,
-                                 &smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int vec = mma::vector_ok(cb / lsub, codes_t, row0, row1);
-  bucket_kernel<E><<<blocks, mma::kThreads, smem, s>>>(
-      static_cast<const int8_t*>(qc), static_cast<const float*>(qs),
-      static_cast<const int8_t*>(codes_t), static_cast<const uint32_t*>(row0),
-      static_cast<const uint32_t*>(row1), static_cast<Value<E>*>(od),
-      static_cast<int32_t*>(oi), b, d, n, lsub, cb, vec);
-  return launch_status();
-}
-
 }  // namespace
 
 // The launchers below run on `stream` and return cudaGetLastError() as an
 // int (0 = launched), or cudaErrorInvalidConfiguration where the grid or
-// the shared memory would not fit.
+// the shared memory would not fit.  K2 and K3 take qc [B, dpad] and codes
+// [N, dpad] (int8, zero past D) and refuse operands TMA cannot describe
+// (wgmma_tile.cuh's prepare); K5 takes qc [B, D] and codes_t [D, N].
+
+// -- K2 and K3: entry points
 
 extern "C" int idt_bucket_scan(const void* qc, const void* qs,
-                               const void* codes_t, const void* scales,
+                               const void* codes, const void* scales,
                                const void* norms, void* od, void* oi, int b,
-                               int d, int n, int lsub, int cb, int is_dot,
+                               int dpad, int n, int lsub, int cb, int is_dot,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_dot ? launch_bucket<kDot>(qc, qs, codes_t, scales, norms, od, oi,
-                                      b, d, n, lsub, cb, s)
-                : launch_bucket<kL2>(qc, qs, codes_t, scales, norms, od, oi,
-                                     b, d, n, lsub, cb, s);
+  return is_dot ? launch_bucket<kDot>(qc, qs, codes, scales, norms, od, oi,
+                                      b, dpad, n, lsub, cb, s)
+                : launch_bucket<kL2>(qc, qs, codes, scales, norms, od, oi,
+                                     b, dpad, n, lsub, cb, s);
 }
 
 extern "C" int idt_bucket_scan_int(const void* qc, const void* w,
-                                   const void* codes_t, void* od, void* oi,
-                                   int b, int d, int n, int lsub, int cb,
+                                   const void* codes, void* od, void* oi,
+                                   int b, int dpad, int n, int lsub, int cb,
                                    void* stream) {
-  return launch_bucket<kInt>(qc, nullptr, codes_t, w, nullptr, od, oi, b, d,
+  return launch_bucket<kInt>(qc, nullptr, codes, w, nullptr, od, oi, b, dpad,
                              n, lsub, cb, static_cast<cudaStream_t>(stream));
 }
+
+// -- end of K2 and K3 entry points
 
 // Largest topt whose lists fit one K5 block's shared memory at width d and
 // lsub slabs (0 when none does).

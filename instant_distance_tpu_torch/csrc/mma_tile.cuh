@@ -1,12 +1,11 @@
-// The int8 tensor-core scan tile shared by every scan kernel, for Hopper
-// (sm_90a): K1 (csrc/scan_kernel.cu, with its probe K6), K2, K3 and K5
-// (csrc/bucket_kernel.cu).
+// The mma.sync int8 tensor-core scan tile (sm_90a) of K5
+// (csrc/bucket_kernel.cu's topt_kernel).  K1 (with its probe K6), K2 and
+// K3 ran on it until they moved to the Hopper tile of wgmma_tile.cuh;
+// K5 is next, after which this tile goes.
 //
-// The TPU kernels it serves (instant_distance_tpu/ops/scan_kernel.py:
-// _bucket_scan_int_packed_kernel, _probe_kernel, _bucket_scan_kernel,
-// _bucket_scan_int_kernel, _fused_scan_kernel) hand the whole [QB, D] x
-// [D, CB] product to the matrix unit; here it goes to the int8 tensor
-// cores.
+// The TPU kernel it serves (instant_distance_tpu/ops/scan_kernel.py:
+// _fused_scan_kernel) hands the whole [QB, D] x [D, CB] product to the
+// matrix unit; here it goes to the int8 tensor cores.
 //
 // What bounds the product on an H100: at the paths' shapes the int8
 // multiply-adds (2 * B * N * D operations, ~1 ms of the 1,979 TOP/s peak)
@@ -42,9 +41,8 @@
 //
 // Point p(o, t) of output column o at slab t: (o / ct) * cb + t * ct +
 // o % ct, ct = cb / lsub.  A block's tile is queries q0 .. q0 + kBQ - 1 x
-// columns o0 .. o0 + kBO - 1: K1, K2 and K3 take it from blockIdx.x (one
-// tile a block), K5 walks the tiles of one cb block itself.  Query rows
-// past B, columns past o_end (N / lsub, or the end of K5's cb block) and d
+// columns o0 .. o0 + kBO - 1; K5 walks the tiles of one cb block itself.
+// Query rows past B, columns past o_end (the end of K5's cb block) and d
 // past D load as zero; the caller skips their outputs.
 
 #pragma once
@@ -159,7 +157,7 @@ using Acc = int32_t[2][4][4];
 
 // One block's scan: kBQ queries from q0 x kBO output columns from o0.
 struct Tile {
-  const int b, d, n, lsub, cb, ct, ncol;
+  const int b, d, n, lsub, cb, ct;
   const bool vec;
   const Plan plan;
   const int q0, o0, o_end;
@@ -174,7 +172,7 @@ struct Tile {
   __device__ Tile(uint8_t* smem_, int b_, int d_, int n_, int lsub_, int cb_,
                   bool vec_, int q0_, int o0_, int o_end_)
       : b(b_), d(d_), n(n_), lsub(lsub_), cb(cb_), ct(cb_ / lsub_),
-        ncol(n_ / lsub_), vec(vec_), plan(d_, lsub_), q0(q0_), o0(o0_),
+        vec(vec_), plan(d_, lsub_), q0(q0_), o0(o0_),
         o_end(o_end_), smem(smem_) {
     const int oc = o0 + 16 * (threadIdx.x & 3);
     const int orow = o0 + 4 * (threadIdx.x & 15);
@@ -182,19 +180,6 @@ struct Tile {
     r_ok = orow < o_end;
     c_base = c_ok ? point(oc, 0) : 0;
     r_base = r_ok ? point(orow, 0) : 0;
-  }
-
-  // This block's tile of a launch of blocks(b, ncol) blocks.
-  __device__ Tile(uint8_t* smem_, int b_, int d_, int n_, int lsub_, int cb_,
-                  bool vec_)
-      : Tile(smem_, b_, d_, n_, lsub_, cb_, vec_,
-             (blockIdx.x % ((b_ + kBQ - 1) / kBQ)) * kBQ,
-             (blockIdx.x / ((b_ + kBQ - 1) / kBQ)) * kBO, n_ / lsub_) {}
-
-  // Blocks of a launch: query blocks fastest.
-  static long long blocks(int b, int ncol) {
-    return static_cast<long long>((b + kBQ - 1) / kBQ) *
-           ((ncol + kBO - 1) / kBO);
   }
 
   __device__ __forceinline__ long long point(int o, int t) const {
@@ -425,23 +410,6 @@ struct Tile {
     }
   }
 };
-
-// Launch geometry: (blocks, dynamic shared bytes); raises the kernel's
-// shared-memory limit.  Returns cudaErrorInvalidConfiguration when the
-// grid or the plan does not fit.
-template <class Kernel>
-cudaError_t prepare(Kernel kernel, int b, int d, int n, int lsub,
-                    unsigned* blocks, int* smem_bytes) {
-  const int ncol = n / lsub;
-  const long long nb = Tile::blocks(b, ncol);
-  const Plan plan(d, lsub);
-  if (nb > 0x7fffffffLL || plan.bytes > kSmemLimit)
-    return cudaErrorInvalidConfiguration;
-  *blocks = static_cast<unsigned>(nb);
-  *smem_bytes = plan.bytes;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              plan.bytes);
-}
 
 }  // namespace mma
 }  // namespace idt

@@ -37,6 +37,7 @@ _SIGNATURES = {
     "idt_topt_scan": (_I, [_P] * 7 + [_I] * 7 + [_P]),
     "idt_topt_max_topt": (_I, [_I, _I]),
     "idt_probe_scan": (_I, [_P] * 4 + [_I] * 6 + [_P]),
+    "idt_wg_plan": (_I, [_I, _P]),
     "idt_walk_search": (_I, [_P] * 8 + [_I] * 7 + [_P]),
     "idt_walk_smem": (_I, [_I] * 5),
     "idt_walk_occupancy": (_I, [_I] * 5),

@@ -28,6 +28,14 @@ Each wrapper launches its hand-written CUDA kernel (``csrc/``) on CUDA
 tensors and counts the launch in :data:`launches`; on CPU tensors it
 runs the plain torch version beside it (``*_plain``), which agrees with
 the kernel bit for bit.  It never falls back from one to the other.
+
+K1-K3 (and K6) run on the Hopper tile of ``csrc/wgmma_tile.cuh``, whose
+TMA copies read the codes point-major: :func:`point_major` keeps that
+copy of ``codes_t`` ([Npad, Dpad], Dpad = D rounded up to 32 with zero
+codes) beside the tensor, made once (by the operand builders on the
+card, else at the first launch) and reused by every later call on the
+same ``codes_t``.  The wrappers pad the batch's ``qc`` to Dpad the same
+way.  K5 reads ``codes_t`` itself.
 """
 
 from __future__ import annotations
@@ -48,6 +56,13 @@ PACK_OFFSET = 1 << 23
 launches = {"fused_scan_bucket_int_packed": 0, "fused_scan_bucket": 0,
             "fused_scan_bucket_int": 0, "fused_scan_topt": 0,
             "walk_search": 0, "fused_scan_probe": 0}
+#: Point-major copies made by :func:`point_major` (at most one per
+#: ``codes_t`` tensor and change of it).
+point_major_copies = 0
+#: The Hopper tile's query block and column tile (csrc/wgmma_tile.cuh's
+#: kBQ, kBN): a launch has ceil(B / 128) x N / cb x ceil(cb / lsub / 128)
+#: blocks.
+_TILE_Q, _TILE_N = 128, 128
 #: K3's ids are -1 where the group's rank is at least this (the JAX
 #: kernel's ``big // 2``, big = INT32_MAX // 2).
 INT_RANK_LIMIT = (_I32MAX // 2) // 2
@@ -76,13 +91,88 @@ def pack_w2(norms_row, denom, eligible_row, *, lsub: int, cb: int,
     return torch.where(ok, w2, PACK_INELIGIBLE)
 
 
+def padded_width(d: int) -> int:
+    """Dpad: the d bytes of a row of the point-major codes and of the
+    padded queries, D rounded up to 32 (TMA wants 16-byte row strides)."""
+    return -(-d // 32) * 32
+
+
+def point_major(codes_t, codes=None):
+    """The point-major codes [Npad, Dpad] int8 of ``codes_t`` [D, Npad]:
+    ``codes_t.T`` with zero codes in columns D..Dpad-1, which change no
+    dot product.  K1-K3 read this copy on the card.  It is made once and
+    kept on ``codes_t`` (remade only after an in-place change of it);
+    ``codes`` [N <= Npad, D], the rows ``codes_t`` was transposed from,
+    makes it without the strided transpose."""
+    global point_major_copies
+    # an inference tensor has no version counter, and cannot change
+    # outside inference mode
+    version = None if codes_t.is_inference() else codes_t._version
+    kept = getattr(codes_t, "_point_major", None)
+    if kept is not None and kept[0] == version:
+        return kept[1]
+    d, npad = codes_t.shape
+    pm = torch.zeros((npad, padded_width(d)), dtype=torch.int8,
+                     device=codes_t.device)
+    if codes is None:
+        pm[:, :d] = codes_t.T
+    else:
+        pm[:codes.shape[0], :d] = codes
+    codes_t._point_major = (version, pm)
+    point_major_copies += 1
+    return pm
+
+
+def _queries_for_tile(qc, dpad: int):
+    """The batch's codes as the Hopper tile's TMA reads them: [B, dpad],
+    16-byte aligned, zero past D (a copy unless ``qc`` is already so)."""
+    b, d = qc.shape
+    if d == dpad and qc.data_ptr() % 16 == 0:
+        return qc
+    out = torch.zeros((b, dpad), dtype=torch.int8, device=qc.device)
+    out[:, :d] = qc
+    return out
+
+
+def _aligned(t):
+    """``t``, or a copy of it where its data is not 16-byte aligned (TMA
+    reads whole 16-byte words)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _check_tile(b: int, d: int, n: int, lsub: int, cb: int) -> None:
+    """Shapes the Hopper tile cannot take raise before the launch: no d
+    bytes, more than 2^16 slabs (K2 and K3 keep each argmin slab in 16
+    bits), or a grid past 2^31 - 1 blocks."""
+    if d < 1:
+        raise ValueError("the scan kernels need D >= 1")
+    if lsub > 1 << 16:
+        raise ValueError(f"lsub = {lsub} > 65536: the kernels' argmin "
+                         "slabs are 16-bit")
+    blocks = (-(-b // _TILE_Q) * (n // cb)
+              * -(-(cb // lsub) // _TILE_N))
+    if blocks > 2**31 - 1:
+        raise ValueError(f"B={b}, N={n}, lsub={lsub}, cb={cb} needs {blocks}"
+                         " blocks, more than one launch holds")
+
+
+def _tile_args(qc, codes_t, lsub: int, cb: int):
+    """(queries, point-major codes, Dpad) of a K1-K3 launch, after the
+    tile's shape checks."""
+    b, d = qc.shape
+    _check_tile(b, d, codes_t.shape[1], lsub, cb)
+    dpad = padded_width(d)
+    return _queries_for_tile(qc, dpad), point_major(codes_t), dpad
+
+
 def pack_operands(points, cb: int, real=None):
     """Point-side operands of the packed-key scan over ``points`` [N, D]
     f32: ONE global scale ``sg``, the codes transposed to [D, Npad] int8
     and the dequantized squared norms [1, Npad] with +inf padding, Npad
     the next multiple of ``cb``.  ``real`` (bool [N], default all) marks
     the rows that are points: only they set ``sg``.  Returns (codes_t,
-    norms_r, sg)."""
+    norms_r, sg); on the card ``codes_t`` keeps its :func:`point_major`
+    copy."""
     amax = (points.abs() if real is None
             else torch.where(real[:, None], points.abs(), 0.0)).max()
     sg = torch.clamp(amax, min=1e-30) / 127.0
@@ -91,6 +181,8 @@ def pack_operands(points, cb: int, real=None):
     norms = (deq * deq).sum(1)
     npad = (-points.shape[0]) % cb
     codes_t = torch.nn.functional.pad(codes, (0, 0, 0, npad)).T.contiguous()
+    if codes_t.is_cuda:
+        point_major(codes_t, codes)
     norms_r = torch.nn.functional.pad(norms, (0, npad),
                                       value=torch.inf)[None, :]
     return codes_t, norms_r, sg
@@ -106,10 +198,13 @@ def bucket_operands(codes, scales, norms, cb: int, variant: str):
     * ``"dot"``:    norms are the 0 eligibility bias (dist = bias - q.p);
     * ``"cosine"``: as "dot", with 1/|p_hat| folded into the scales.
 
-    Returns (codes_t, scales_r, norms_r)."""
+    Returns (codes_t, scales_r, norms_r); on the card ``codes_t`` keeps
+    its :func:`point_major` copy."""
     n = codes.shape[0]
     npad = (-n) % cb
     codes_t = torch.nn.functional.pad(codes, (0, 0, 0, npad)).T.contiguous()
+    if codes_t.is_cuda:
+        point_major(codes_t, codes)
     if variant == "cosine":
         scales = scales * torch.rsqrt(torch.clamp(norms, min=1e-30))
     scales_r = torch.nn.functional.pad(scales, (0, npad))[None, :]
@@ -286,16 +381,18 @@ def fused_scan_bucket_int_packed(qc, w2, codes_t, *, lsub: int = 32,
         return fused_scan_bucket_int_packed_plain(
             qc, w2, codes_t, lsub=lsub, cb=cb, groups=groups)
     _check(qc, w2, codes_t, lsub, cb, groups)
-    b, d = qc.shape
+    b = qc.shape[0]
     n = codes_t.shape[1]
     dev = qc.device
     od = torch.empty((b, n // lsub), dtype=torch.int32, device=dev)
     og = (torch.empty((b, n // (lsub * groups)), dtype=torch.int32,
                       device=dev) if groups > 1 else None)
     if b and n:
+        q, pm, dpad = _tile_args(qc, codes_t, lsub, cb)
+        w2 = _aligned(w2)
         _launch("fused_scan_bucket_int_packed", "idt_packed_scan", dev,
-                _ptr(qc), _ptr(w2), _ptr(codes_t), _ptr(od), _ptr(og),
-                b, d, n, lsub, cb, groups)
+                _ptr(q), _ptr(w2), _ptr(pm), _ptr(od), _ptr(og),
+                b, dpad, n, lsub, cb, groups)
     return (od, og) if groups > 1 else od
 
 
@@ -374,15 +471,17 @@ def fused_scan_bucket(qc, qs, codes_t, scales, norms, *, lsub: int = 16,
         return fused_scan_bucket_plain(qc, qs, codes_t, scales, norms,
                                        lsub=lsub, cb=cb, is_dot=is_dot)
     _check_bucket(qc, qs, codes_t, scales, norms, lsub, cb)
-    b, d = qc.shape
+    b = qc.shape[0]
     n = codes_t.shape[1]
     dev = qc.device
     od = torch.empty((b, n // lsub), dtype=torch.float32, device=dev)
     oi = torch.empty((b, n // lsub), dtype=torch.int32, device=dev)
     if b and n:
-        _launch("fused_scan_bucket", "idt_bucket_scan", dev, _ptr(qc),
-                _ptr(qs), _ptr(codes_t), _ptr(scales), _ptr(norms),
-                _ptr(od), _ptr(oi), b, d, n, lsub, cb, int(is_dot))
+        q, pm, dpad = _tile_args(qc, codes_t, lsub, cb)
+        scales, norms = _aligned(scales), _aligned(norms)
+        _launch("fused_scan_bucket", "idt_bucket_scan", dev, _ptr(q),
+                _ptr(qs), _ptr(pm), _ptr(scales), _ptr(norms), _ptr(od),
+                _ptr(oi), b, dpad, n, lsub, cb, int(is_dot))
     return od, oi
 
 
@@ -417,15 +516,17 @@ def fused_scan_bucket_int(qc, w, codes_t, *, lsub: int = 32,
     if not _on_card(tensors):
         return fused_scan_bucket_int_plain(qc, w, codes_t, lsub=lsub, cb=cb)
     _check_int(qc, w, codes_t, lsub, cb)
-    b, d = qc.shape
+    b = qc.shape[0]
     n = codes_t.shape[1]
     dev = qc.device
     od = torch.empty((b, n // lsub), dtype=torch.int32, device=dev)
     oi = torch.empty((b, n // lsub), dtype=torch.int32, device=dev)
     if b and n:
+        q, pm, dpad = _tile_args(qc, codes_t, lsub, cb)
+        w = _aligned(w)
         _launch("fused_scan_bucket_int", "idt_bucket_scan_int", dev,
-                _ptr(qc), _ptr(w), _ptr(codes_t), _ptr(od), _ptr(oi),
-                b, d, n, lsub, cb)
+                _ptr(q), _ptr(w), _ptr(pm), _ptr(od), _ptr(oi), b, dpad, n,
+                lsub, cb)
     return od, oi
 
 
@@ -560,12 +661,14 @@ def fused_scan_probe(qc, w2, codes_t, *, lsub: int = 64, cb: int = 8192,
         return fused_scan_probe_plain(qc, w2, codes_t, lsub=lsub, cb=cb,
                                       inner=inner, probe=probe)
     _check_probe(qc, w2, codes_t, lsub, cb, inner, probe)
-    b, d = qc.shape
+    b = qc.shape[0]
     n = codes_t.shape[1]
     dev = qc.device
     od = torch.empty((b, n // lsub), dtype=torch.int32, device=dev)
     if b and n:
-        _launch("fused_scan_probe", "idt_probe_scan", dev, _ptr(qc),
-                _ptr(w2), _ptr(codes_t), _ptr(od), b, d, n, lsub, cb,
+        q, pm, dpad = _tile_args(qc, codes_t, lsub, cb)
+        w2 = _aligned(w2)
+        _launch("fused_scan_probe", "idt_probe_scan", dev, _ptr(q),
+                _ptr(w2), _ptr(pm), _ptr(od), b, dpad, n, lsub, cb,
                 PROBES.index(probe))
     return od

@@ -25,12 +25,16 @@ from test_torch_packed import check_card as check_packed_kernels
 
 pytestmark = pytest.mark.gpu
 
-#: K1: (B, D, N, lsub, cb, groups, variant).  The new tile's edges: a
-#: batch of 1 and batches one past the 128-query tile, D tails (D % 32),
-#: two chunks of d (D > 512), N/lsub not a multiple of the 64-column
-#: tile, cb/lsub % 16 != 0, misaligned codes (the plain staging path) and
-#: a column count that is a multiple of 8192 but not of 16384 (the capped
-#: operands of a sampled build, ``construct_sample_cols``).
+#: K1: (B, D, N, lsub, cb, groups, variant).  The Hopper tile's edges
+#: (csrc/wgmma_tile.cuh: 128 queries in two consumers of 64, 128 columns,
+#: 128-byte d chunks): a batch of 1 and batches one past a consumer's and
+#: a block's queries, D tails (Dpad = D rounded up to 32, zero-padded),
+#: nine chunks of d at D 960 and 1024 against a ring of five stages, the
+#: query tile streamed with the codes (D 1536), cb/lsub = 144 (a second,
+#: partial column tile) and cb/lsub < 128 (one partial tile a cb block),
+#: misaligned codes_t (the point-major copy is the kernel's) and a column
+#: count that is a multiple of 8192 but not of 16384 (the capped operands
+#: of a sampled build, ``construct_sample_cols``).
 #: Variants: "extreme" puts every code at +-127 (D * lsub = 16384, the
 #: guard's edge of |dot| * lsub < 2^28); "misaligned" shifts codes_t's
 #: data off 16-byte alignment.
@@ -51,6 +55,9 @@ PACKED_CASES = (
     # code +-127 (|dot| * lsub = 2.48e8) with N/lsub = 144
     (1024, 960, 65536, 16, 8192, 0, ""),
     (129, 960, 2304, 16, 768, 0, "extreme"),
+    (65, 128, 16384, 64, 8192, 0, ""),       # one past a consumer's 64
+    (129, 128, 4608, 16, 2304, 2, ""),       # cb/lsub = 144: a partial tile
+    (65, 1536, 8192, 8, 1024, 0, ""),        # the query tile streamed
 )
 #: K2 / K3 / K5: (B, D, N, lsub, cb, variant); each runs K2 and K5 both
 #: ways of is_dot.  300 is the fastText width of the 300-d path.  K5's
@@ -81,6 +88,11 @@ BUCKET_CASES = (
     (1024, 960, 65536, 32, 4096, ""),
     (1024, 960, 65536, 32, 8192, ""),
     (130, 960, 2304, 32, 768, "ties"),
+    # the Hopper tile: one past a consumer's 64 queries with cb/lsub =
+    # 144, more d chunks than the ring's stages, the query tile streamed
+    (65, 300, 4608, 16, 2304, ""),
+    (1, 1024, 8192, 32, 4096, "ties"),
+    (65, 1536, 4096, 16, 2048, ""),
 )
 TOPT = 8
 

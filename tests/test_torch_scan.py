@@ -292,7 +292,9 @@ def _check_bucket_wrappers():
 
 def _check_fused_operands():
     """``ScanIndex._fused_arrays`` (l2/dot/cosine) and the build's
-    ``_quantize_for_scan`` (K2 at D=300 for each metric, K1 at D=16)."""
+    ``_quantize_for_scan`` (K2 at D=300 for each metric, K1 at D=16); and
+    the Hopper tile's operand layout on each: the point-major codes and
+    the padded query codes (:func:`_check_tile_layout`)."""
     rng = np.random.default_rng(5)
     pts = rng.standard_normal((700, 300)).astype(np.float32)
     pts[3] = 0.0                                   # the 1e-30 norm floor
@@ -302,6 +304,8 @@ def _check_fused_operands():
         got = port._fused_arrays(256, variant)
         want = jidx._fused_arrays(256, variant)
         _same_operands(got, want, f"_fused_arrays {variant}")
+        _check_tile_layout(got[0], torch.from_numpy(pts),
+                           f"_fused_arrays {variant}")
     for metric, d in (("sqeuclidean", 300), ("dot", 300), ("cosine", 300),
                       ("sqeuclidean", 16)):
         want = jconstruct._quantize_for_scan(jnp.asarray(pts[:, :d]),
@@ -309,6 +313,42 @@ def _check_fused_operands():
         got = tconstruct._quantize_for_scan(torch.from_numpy(pts[:, :d]),
                                             metric)
         _same_operands(got, want, f"_quantize_for_scan {metric} D={d}")
+        _check_tile_layout(got[0], torch.from_numpy(pts[:, :d]),
+                           f"_quantize_for_scan {metric} D={d}")
+
+
+def _check_tile_layout(codes_t, queries, what):
+    """The operands K1-K3 read on the card (csrc/wgmma_tile.cuh): the
+    point-major codes [Npad, Dpad] equal ``codes_t.T`` with zero codes in
+    columns D..Dpad-1 (Dpad = D rounded up to 32), made once per
+    ``codes_t`` (and again after an in-place change), the same when made
+    from the untransposed rows; a batch's query codes padded the same
+    way."""
+    d, npad = codes_t.shape
+    dpad = tsk.padded_width(d)
+    assert dpad % 32 == 0 and d <= dpad < d + 32, (d, dpad)
+    made = tsk.point_major_copies
+    pm = tsk.point_major(codes_t)
+    assert pm.dtype == torch.int8 and tuple(pm.shape) == (npad, dpad), what
+    np.testing.assert_array_equal(pm[:, :d].numpy(), codes_t.T.numpy(),
+                                  err_msg=what)
+    assert not pm[:, d:].any(), what
+    assert tsk.point_major(codes_t) is pm, what
+    assert tsk.point_major_copies == made + 1, what
+    rows = codes_t.T[:npad - 5].contiguous()
+    again = codes_t.clone()
+    again[:, npad - 5:] = 0
+    np.testing.assert_array_equal(tsk.point_major(again, rows).numpy(),
+                                  torch.where(torch.arange(npad)[:, None]
+                                              < npad - 5, pm, 0).numpy(),
+                                  err_msg=what)
+    codes_t.add_(0)                            # an in-place change
+    assert tsk.point_major(codes_t) is not pm, what
+    qc, _ = tsk.quantize_batch(queries[:64])
+    q = tsk._queries_for_tile(qc, dpad)
+    assert tuple(q.shape) == (64, dpad) and q.data_ptr() % 16 == 0, what
+    np.testing.assert_array_equal(q[:, :d].numpy(), qc.numpy(), err_msg=what)
+    assert not q[:, d:].any(), what
 
 
 def _same_operands(got, want, what):

@@ -1,5 +1,6 @@
-"""Run the CUDA kernels on the CPU: the tensor-core scan kernels (K1 and
-its probe K6, K2, K3, K5) and the packed walk K4.
+"""Run the CUDA kernels of the mma.sync tile on the CPU: the top-T scan
+K5 (``csrc/bucket_kernel.cu``'s ``topt_kernel`` on ``csrc/mma_tile.cuh``)
+and the packed walk K4.
 
 A check of the kernels' index math for a machine without ``nvcc``:
 copies ``instant_distance_tpu_torch/csrc`` into ``build/cuda_emu/``,
@@ -11,10 +12,16 @@ barriers for ``__syncthreads`` and the warp collectives: shuffles,
 ballots, ldmatrix, mma.sync), and holds every result bit for bit against
 the plain torch versions of ``ops/scan_kernel.py`` and
 ``ops/walk_kernel.py`` at small shapes that reach the kernels' edges.
-It says nothing about what ``nvcc`` accepts or how fast the card runs;
-the kernels' tests on the card are ``tests/test_torch_gpu.py``.
+It says nothing about what ``nvcc`` accepts or how fast the card runs.
 
-    python tools/cuda_emu/run.py [k1|k2|k3|k4|k5 ...]
+It emulates only ``mma_tile.cuh``: it cannot run wgmma, TMA, mbarriers
+or setmaxnreg, so K1 (with its probe K6), K2 and K3, which run on the
+Hopper tile of ``csrc/wgmma_tile.cuh``, are left out (``scan_kernel.cu``
+is not built, and ``bucket_kernel.cu``'s K2/K3 sections are cut).  They
+are held against their plain versions only on the card, by
+``tests/test_torch_gpu.py``: run that before any timing of them.
+
+    python tools/cuda_emu/run.py [k4|k5 ...]
 
 Each block runs 256 OS threads, so keep the shapes small (a few blocks).
 """
@@ -110,8 +117,18 @@ def build() -> dict:
     """Emulation libraries {source stem: ctypes library}."""
     os.makedirs(OUT, exist_ok=True)
     for name in os.listdir(CSRC):
+        if name in ("wgmma_tile.cuh", "scan_kernel.cu"):
+            continue                     # the Hopper tile: not emulated
         with open(os.path.join(CSRC, name)) as f:
             s = f.read()
+        if name == "bucket_kernel.cu":
+            s = s.replace('#include "wgmma_tile.cuh"\n', "")
+            s = s.replace("namespace wg = idt::wg;\n", "")
+            for first, last in (("// -- K2 and K3: the Hopper tile",
+                                 "// -- end of K2 and K3\n"),
+                                ("// -- K2 and K3: entry points",
+                                 "// -- end of K2 and K3 entry points\n")):
+                s = s[:s.index(first)] + s[s.index(last) + len(last):]
         if name == "mma_tile.cuh":
             a = s.index("__device__ __forceinline__ uint32_t smem_addr")
             b = s.index("// Swizzle of the 16-byte chunks")
@@ -128,7 +145,7 @@ def build() -> dict:
         with open(os.path.join(OUT, name), "w") as f:
             f.write(s)
     libs = {}
-    for stem in ("scan_kernel", "bucket_kernel", "walk_kernel"):
+    for stem in ("bucket_kernel", "walk_kernel"):
         so = os.path.join(OUT, f"{stem}.so")
         subprocess.run(["g++", "-x", "c++", "-std=c++20", "-O1",
                         "-ffp-contract=off", "-fPIC", "-shared", "-pthread",
@@ -136,11 +153,7 @@ def build() -> dict:
                         so], check=True)
         libs[stem] = ctypes.CDLL(so)
     P, I = ctypes.c_void_p, ctypes.c_int
-    libs["scan_kernel"].idt_packed_scan.argtypes = [P] * 5 + [I] * 6 + [P]
-    libs["scan_kernel"].idt_probe_scan.argtypes = [P] * 4 + [I] * 6 + [P]
     bk = libs["bucket_kernel"]
-    bk.idt_bucket_scan.argtypes = [P] * 7 + [I] * 6 + [P]
-    bk.idt_bucket_scan_int.argtypes = [P] * 5 + [I] * 5 + [P]
     bk.idt_topt_scan.argtypes = [P] * 7 + [I] * 7 + [P]
     bk.idt_topt_max_topt.argtypes = [I, I]
     libs["walk_kernel"].idt_walk_search.argtypes = [P] * 8 + [I] * 7 + [P]
@@ -166,48 +179,6 @@ def _same(got, want, what: str) -> None:
     print("ok", what, flush=True)
 
 
-#: K1 / K6: (B, D, N, lsub, cb, groups, variant)
-K1_CASES = (
-    (7, 3, 512, 8, 64, 0, ""),               # cb / lsub = 8: plain staging
-    (100, 20, 4096, 16, 1024, 4, ""),        # groups
-    (129, 100, 2304, 16, 768, 0, ""),        # N / lsub = 144: ragged tile
-    (1, 128, 8192, 32, 8192, 0, ""),         # a batch of 1
-    (130, 256, 8192, 64, 8192, 0, "extreme"),  # every code +-127
-    (40, 128, 4096, 16, 2048, 0, "misaligned"),
-    (20, 600, 2048, 16, 1024, 0, ""),        # two chunks of d
-    # GIST1M's width at lsub 16 (D * lsub = 15,360): every code +-127
-    # takes |dot| * lsub to 2.48e8, near the packed key's 2^28
-    (33, 960, 2304, 16, 768, 0, "extreme"),
-)
-#: K2: (B, D, N, lsub, cb, variant); each runs both ways of is_dot
-K2_CASES = (
-    (7, 3, 512, 8, 64, ""),
-    (129, 300, 4096, 32, 4096, ""),
-    (100, 16, 2304, 16, 768, ""),
-    (70, 100, 4096, 32, 4096, "ties"),       # NaN/-inf norms, equal slabs
-    (33, 600, 2048, 16, 1024, ""),
-    (20, 64, 2048, 16, 2048, "misaligned"),
-    (20, 16, 960, 3, 96, ""),                # odd lsub: a slab a step
-    (9, 40, 1536, 12, 384, "ties"),
-    (20, 960, 2048, 32, 1024, ""),           # GIST1M's width
-)
-
-
-#: K3: (B, D, N, lsub, cb, variant).  "ties" repeats slab 0 of every
-#: block in slabs 1 and 3 (codes and w), and makes every odd group a copy
-#: of the even one before it (equal minima, K5's id order among them);
-#: for K2/K5 it also puts NaN and -inf norms in the first cb block.
-#: "edges" makes one whole cb block ineligible.  w reaches the int32
-#: range, so w - dot wraps.
-K3_CASES = (
-    (7, 3, 512, 8, 64, ""),                  # cb / lsub = 8: plain staging
-    (129, 300, 8192, 64, 8192, ""),          # the 300-d path's lsub and cb
-    (100, 20, 2304, 16, 768, "edges"),       # N / lsub = 144: ragged tile
-    (70, 100, 4096, 32, 4096, "ties"),
-    (33, 600, 2048, 16, 1024, ""),           # two chunks of d
-    (20, 64, 2048, 16, 2048, "misaligned"),
-    (20, 960, 2304, 32, 768, ""),            # GIST1M's width, ragged tile
-)
 #: K5: (B, D, N, lsub, cb, topt, variant); each runs both ways of is_dot.
 #: "edges": one whole cb block ineligible (+inf norms), -inf norms in
 #: another, NaN norms in a third; "ties" as for K2.
@@ -223,7 +194,11 @@ K5_CASES = (
 def _bucket_operands(b, d, n, lsub, cb, variant):
     """Random K2/K3/K5 operands (qc, qs, codes, scales, norms, w):
     ineligible points (+inf norms, INT32_MAX // 2 ranks), a padded tail;
-    ``variant`` as in K2_CASES, K3_CASES and K5_CASES."""
+    ``variant`` as in K5_CASES: "ties" repeats slab 0 of every block in
+    slabs 1 and 3 (codes, scales, norms and w), makes every odd group a
+    copy of the even one before it (equal minima, K5's id order among
+    them) and puts NaN and -inf norms in the first cb block; "edges"
+    makes one whole cb block ineligible.  w reaches the int32 range."""
     g = torch.Generator().manual_seed(n + d + b)
     qc = torch.randint(-127, 128, (b, d), generator=g, dtype=torch.int8)
     codes = torch.randint(-127, 128, (d, n), generator=g, dtype=torch.int8)
@@ -253,80 +228,6 @@ def _bucket_operands(b, d, n, lsub, cb, variant):
     if variant == "misaligned":
         codes = _misaligned(codes)
     return qc, qs, codes, scales, norms, w
-
-
-def check_k1(lib) -> None:
-    for b, d, n, lsub, cb, groups, variant in K1_CASES:
-        g = torch.Generator().manual_seed(n + d + b)
-        qc = torch.randint(-127, 128, (b, d), generator=g, dtype=torch.int8)
-        codes = torch.randint(-127, 128, (d, n), generator=g,
-                              dtype=torch.int8)
-        if variant == "extreme":
-            qc = torch.where(qc >= 0, 127, -127).to(torch.int8)
-            codes = torch.where(codes >= 0, 127, -127).to(torch.int8)
-        norms = torch.rand((1, n), generator=g) * 4
-        norms[0, -3 * n // 64:] = torch.inf
-        eligible = torch.rand((1, n), generator=g) < 0.9
-        w2 = tsk.pack_w2(norms, torch.tensor(2 * 0.011 * 0.019), eligible,
-                         lsub=lsub, cb=cb, d=d)
-        if variant == "misaligned":
-            codes = _misaligned(codes)
-        case = f"B={b} D={d} N={n} lsub={lsub} cb={cb} {variant}"
-        t0 = time.perf_counter()
-        od = torch.zeros((b, n // lsub), dtype=torch.int32)
-        og = (torch.zeros((b, n // (lsub * groups)), dtype=torch.int32)
-              if groups > 1 else None)
-        assert lib.idt_packed_scan(_ptr(qc), _ptr(w2), _ptr(codes), _ptr(od),
-                                   _ptr(og), b, d, n, lsub, cb, groups,
-                                   None) == 0
-        want = tsk.fused_scan_bucket_int_packed_plain(
-            qc, w2, codes, lsub=lsub, cb=cb, groups=groups)
-        _same((od, og) if groups > 1 else (od,),
-              want if groups > 1 else (want,),
-              f"K1 {case} groups={groups} ({time.perf_counter() - t0:.1f} s)")
-        for probe in tsk.PROBES:
-            od = torch.zeros((b, n // lsub), dtype=torch.int32)
-            assert lib.idt_probe_scan(_ptr(qc), _ptr(w2), _ptr(codes),
-                                      _ptr(od), b, d, n, lsub, cb,
-                                      tsk.PROBES.index(probe), None) == 0
-            _same((od,), (tsk.fused_scan_probe_plain(
-                qc, w2, codes, lsub=lsub, cb=cb, probe=probe),),
-                f"K6 {probe} {case}")
-
-
-def check_k2(lib) -> None:
-    for b, d, n, lsub, cb, variant in K2_CASES:
-        qc, qs, codes, scales, norms, _ = _bucket_operands(b, d, n, lsub, cb,
-                                                           variant)
-        for is_dot in (False, True):
-            nm = torch.where(torch.isfinite(norms), 0.0, norms) \
-                if is_dot else norms
-            t0 = time.perf_counter()
-            od = torch.zeros((b, n // lsub))
-            oi = torch.zeros((b, n // lsub), dtype=torch.int32)
-            assert lib.idt_bucket_scan(_ptr(qc), _ptr(qs), _ptr(codes),
-                                       _ptr(scales), _ptr(nm), _ptr(od),
-                                       _ptr(oi), b, d, n, lsub, cb,
-                                       int(is_dot), None) == 0
-            _same((od, oi), tsk.fused_scan_bucket_plain(
-                qc, qs, codes, scales, nm, lsub=lsub, cb=cb, is_dot=is_dot),
-                f"K2 B={b} D={d} N={n} lsub={lsub} cb={cb} is_dot={is_dot} "
-                f"{variant} ({time.perf_counter() - t0:.1f} s)")
-
-
-def check_k3(lib) -> None:
-    for b, d, n, lsub, cb, variant in K3_CASES:
-        qc, _, codes, _, _, w = _bucket_operands(b, d, n, lsub, cb, variant)
-        t0 = time.perf_counter()
-        od = torch.zeros((b, n // lsub), dtype=torch.int32)
-        oi = torch.zeros((b, n // lsub), dtype=torch.int32)
-        assert lib.idt_bucket_scan_int(_ptr(qc), _ptr(w), _ptr(codes),
-                                       _ptr(od), _ptr(oi), b, d, n, lsub, cb,
-                                       None) == 0
-        _same((od, oi), tsk.fused_scan_bucket_int_plain(
-            qc, w, codes, lsub=lsub, cb=cb),
-            f"K3 B={b} D={d} N={n} lsub={lsub} cb={cb} {variant} "
-            f"({time.perf_counter() - t0:.1f} s)")
 
 
 def check_k5(lib) -> None:
@@ -423,11 +324,9 @@ def check_k4(lib) -> None:
 
 
 def main(argv=None) -> int:
-    which = argv or sys.argv[1:] or ["k1", "k2", "k3", "k4", "k5"]
+    which = argv or sys.argv[1:] or ["k4", "k5"]
     libs = build()
-    checks = {"k1": (check_k1, "scan_kernel"), "k2": (check_k2, "bucket_kernel"),
-              "k3": (check_k3, "bucket_kernel"),
-              "k4": (check_k4, "walk_kernel"),
+    checks = {"k4": (check_k4, "walk_kernel"),
               "k5": (check_k5, "bucket_kernel")}
     for name in which:
         check, stem = checks[name]
