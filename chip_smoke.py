@@ -9,13 +9,13 @@ against its plain torch version:
   2. build    — compiles csrc/*.cu (one nvcc per source, in parallel),
                 prints each kernel's registers and spills (ptxas) and its
                 tensor-core, TMA and __dp4a instruction counts (cuobjdump
-                -sass), and fails unless K1/K6 and K2/K3 run on the Hopper
-                tile (warpgroup MMA, IGMMA, fed by TMA loads, UTMALDG, and
-                no mma.sync IMMA) and K5 on the mma.sync tile (IMMA), none
-                with a __dp4a; prints the Hopper tile's shared memory a
-                block and stages at the paths' widths, and K4's shared
-                memory a block and blocks an SM at the packed calls'
-                shapes;
+                -sass), and fails unless K1/K6 and K2/K3/K5 run on the
+                Hopper tile (warpgroup MMA, IGMMA, fed by TMA loads,
+                UTMALDG, and no mma.sync IMMA), none with a __dp4a; prints
+                K5's kernels apart (its tile, its merge), the Hopper tile's
+                shared memory a block and stages at the paths' widths, and
+                K4's shared memory a block and blocks an SM at the packed
+                calls' shapes;
   3. kernels  — each kernel (K1 packed keys, K2 bucket, K3 bucket_int,
                 K5 topt, K4 walk, K6 probe in its three modes) vs its
                 plain version on random inputs from a seeded generator on
@@ -23,12 +23,14 @@ against its plain torch version:
                 a random valid graph of 65,536 nodes, K = 64, D 128 and
                 300, expand 1 and 2); results bit-exact,
                 both timed with CUDA events in turns, each scan with its
-                TOP/s and its share of the bound; torch._int_mm on K1's
+                TOP/s and its share of the bound (K2 and K5 also of their
+                f32 epilogue's CUDA-core floor); torch._int_mm on K1's
                 product as the yardstick of K6's "mm" mode; K6 also at
                 K2's 300-d build wave shape, which splits K2's time into
                 the tile's product and K2's f32 epilogue; K2 also on K5's
-                topt-batch operands, which splits K5's time into K2's
-                group minima and the top-T merge;
+                topt-batch operands and K5's merge kernel alone, which
+                split K5's time into the tile with its top-T epilogue
+                (against K2's, which stores every group) and the merge;
   4. scan     — ScanIndex(fused="bucket_pack") over SIFT1M-shaped data
                 (1M x 128), an 8192-query batch: qps, recall@10 vs
                 BruteForce (K1); the grouped selections on the same index
@@ -236,15 +238,25 @@ LADDER_SCAN_KW = dict(k=K, fused="bucket_pack", cb=8192, inner=2, ef=32)
 LADDER_ROWS, LADDER_HEADROOM = 1024, 4_000_000_000
 LADDER_PACKED_FALLBACK = 500_000
 
-#: Kernels on the Hopper tile (csrc/wgmma_tile.cuh: K1 with K6; K2 and K3,
-#: one template): the build phase fails unless their machine code holds
-#: the warpgroup MMA (IGMMA) and TMA loads (UTMALDG), and no mma.sync
-#: (IMMA) or __dp4a (IDP.4A).  Mangled, a template kernel's name is its
-#: length, the name and "I" (its template arguments follow).
+#: Kernels on the Hopper tile (csrc/wgmma_tile.cuh: K1 with K6; K2, K3 and
+#: K5, one template): the build phase fails unless their machine code
+#: holds the warpgroup MMA (IGMMA) and TMA loads (UTMALDG), and no
+#: mma.sync (IMMA) or __dp4a (IDP.4A).  Mangled, a template kernel's name
+#: is its length, the name and "I" (its template arguments follow).
 WGMMA_KERNELS = ("18packed_scan_kernelI", "13bucket_kernelI")
-#: Kernels on the mma.sync tile (csrc/mma_tile.cuh: K5): IMMA and no
-#: __dp4a.
-IMMA_KERNELS = ("11topt_kernelI",)
+#: K5's kernels in the mangled names: bucket_kernel with its top-T output
+#: policy (Output = kTopT = 1) and the merge of a cb block's tiles.
+K5_KERNELS = ("6OutputE1E", "17topt_merge_kernel")
+#: K2's epilogue: operations of one element (csrc/bucket_kernel.cu's
+#: f32_value and min_update: int-to-float, qs * s, * dot, * 2 (L2 only),
+#: the subtraction, the compare, the NaN test and the two selects), by
+#: is_dot; K5 runs the same per slab.  Their CUDA-core floor is B * N
+#: elements at SMS x LANES lanes and the card's clocks.max.sm (H100 SXM,
+#: NVIDIA's data sheet).
+K2_EPILOGUE_OPS = {False: 9, True: 8}
+SMS, LANES = 132, 128
+#: The card's clocks.max.sm in MHz (nvidia-smi), set by main().
+MAX_SM_MHZ = 0.0
 #: The widths whose Hopper-tile plan the build phase prints: the paths'
 #: 128, 300 and 960, and 1536, where the query tile streams.
 PLAN_WIDTHS = (DIM, DIM300, 960, 1536)
@@ -351,8 +363,7 @@ def _sass_check(build) -> list:
     """Tensor-core (IMMA, HMMA, IGMMA, HGMMA), TMA load (UTMALDG) and
     __dp4a (IDP.4A) instruction counts of every kernel in the built
     libraries, from ``cuobjdump -sass``.  Raises unless each kernel of
-    WGMMA_KERNELS holds IGMMA and UTMALDG and no IMMA, and each of
-    IMMA_KERNELS IMMA, none of them a __dp4a."""
+    WGMMA_KERNELS holds IGMMA and UTMALDG and no IMMA or __dp4a."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     tool = os.path.join(CUDA_HOME, "bin", "cuobjdump")
@@ -383,12 +394,10 @@ def _sass_check(build) -> list:
                 or has("IDP")):
             raise AssertionError(f"{fn}: {dict(c)} (want IGMMA and UTMALDG, "
                                  "no IMMA and no IDP.4A)")
-        if any(k in fn for k in IMMA_KERNELS) and (not has("IMMA")
-                                                   or has("IDP")):
-            raise AssertionError(f"{fn}: {dict(c)} (want IMMA and no "
-                                 "IDP.4A)")
         if c:
             lines.append(f"{fn}: {dict(c)}")
+    if not any(K5_KERNELS[0] in fn and c for fn, c in counts.items()):
+        raise AssertionError("no K5 tile kernel with tensor-core code")
     return lines
 
 
@@ -610,6 +619,10 @@ def _hold_kernel(torch, tsk, label, kernel, rows, shared, kw,
         raise AssertionError(f"{kernel} {label}: kernel differs from "
                              f"plain by {err}")
     bound_ms, bound_by = _bound(b, d, n, rows, shared, got)
+    floor = ""
+    if kernel in ("fused_scan_bucket", "fused_scan_topt"):
+        floor_ms = epilogue_floor_ms(b, n, kw["is_dot"], MAX_SM_MHZ)
+        floor = f", epilogue floor {floor_ms:.4f} ms"
     del got, want
     iters = 3 if b * n > 1 << 32 else 10
 
@@ -623,6 +636,8 @@ def _hold_kernel(torch, tsk, label, kernel, rows, shared, kw,
     p1, k1, k2, p2 = (_cuda_ms(torch, f, iters)
                       for f in (plain, kern, kern, plain))
     ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    if floor:
+        floor += f" ({floor_ms / ms:.2%} of it)"
     library_ms = (_int_mm_ms(torch, rows[0], shared[1], iters) if library
                   else None)
     dp4a_ms = DP4A_MS.get((kernel, label))
@@ -630,7 +645,7 @@ def _hold_kernel(torch, tsk, label, kernel, rows, shared, kw,
            f"{kw}: bit-exact; kernel {ms:.4f} ms "
            f"({2 * b * n * d / ms / 1e9:.1f} TOP/s, "
            f"{bound_ms / ms:.2%} of the bound), plain {plain_ms:.4f} ms, "
-           f"bound {bound_ms:.4f} ms ({bound_by})"
+           f"bound {bound_ms:.4f} ms ({bound_by}){floor}"
            + ("" if library_ms is None else
               f", torch._int_mm {library_ms:.4f} ms")
            + ("" if dp4a_ms is None else
@@ -639,6 +654,49 @@ def _hold_kernel(torch, tsk, label, kernel, rows, shared, kw,
            + f" [{CARD}]")
     return dict(case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
+def epilogue_floor_ms(b: int, n: int, is_dot: bool, mhz: float) -> float:
+    """The CUDA-core floor of K2's (and K5's) f32 epilogue: B * N elements
+    of K2_EPILOGUE_OPS operations at SMS x LANES lanes and ``mhz``, the
+    card's clocks.max.sm."""
+    return b * n * K2_EPILOGUE_OPS[is_dot] / (SMS * LANES * mhz * 1e6) * 1e3
+
+
+def _topt_merge_ms(torch, tsk, rows, shared, kw, iters: int) -> float:
+    """Device ms of K5's merge kernel alone at one call: K5's C entry
+    point fills the scratch once, then its merge entry point runs on it
+    (direct calls into the library, not launches of the wrapper)."""
+    from instant_distance_tpu_torch.ops._build import check, library
+
+    qc, qs = rows
+    codes_t, scales, norms = shared
+    b, n = qc.shape[0], codes_t.shape[1]
+    lsub, cb, topt = kw["lsub"], kw["cb"], kw["topt"]
+    tiles = -(-(cb // lsub) // tsk._TILE_N)
+    q, pm, dpad = tsk._tile_args(qc, codes_t, lsub, cb)
+    scales, norms = tsk._aligned(scales), tsk._aligned(norms)
+    sv = torch.empty((b, n // cb, tiles, topt), dtype=torch.float32,
+                     device=qc.device)
+    si = torch.empty(sv.shape, dtype=torch.int32, device=qc.device)
+    od = torch.empty((b, n // cb * topt), dtype=torch.float32,
+                     device=qc.device)
+    oi = torch.empty(od.shape, dtype=torch.int32, device=qc.device)
+    lib = library()
+    stream = torch.cuda.current_stream(qc.device).cuda_stream
+    check(lib, lib.idt_topt_scan(
+        q.data_ptr(), qs.data_ptr(), pm.data_ptr(), scales.data_ptr(),
+        norms.data_ptr(), od.data_ptr(), oi.data_ptr(), sv.data_ptr(),
+        si.data_ptr(), b, dpad, n, lsub, cb, topt, int(kw["is_dot"]),
+        stream), "K5")
+
+    def merge():
+        check(lib, lib.idt_topt_merge(sv.data_ptr(), si.data_ptr(),
+                                      od.data_ptr(), oi.data_ptr(), b,
+                                      n // cb, tiles, topt, stream),
+              "K5's merge")
+
+    return _cuda_ms(torch, merge, iters)
 
 
 def phase_kernels(torch, tsk, dev):
@@ -654,6 +712,9 @@ def phase_kernels(torch, tsk, dev):
             library=opts.get("probe") == "mm" and kernel not in records)
         times[(kernel, label)] = rec["ms"]
         records.setdefault(kernel, rec)
+        if (kernel, label) == ("fused_scan_topt", "topt batch"):
+            times["K5 merge"] = _topt_merge_ms(torch, tsk, rows, shared, kw,
+                                               10)
         del rows, shared
         torch.cuda.empty_cache()
     mm, mn, full = (times["fused_scan_probe", f"scan batch {p}"]
@@ -670,9 +731,12 @@ def phase_kernels(torch, tsk, dev):
            f"K2's f32 epilogue and argmin {k2 - mn:.4f} ms = K2 {k2:.4f} ms")
     k2, k5 = (times[k, "topt batch"]
               for k in ("fused_scan_bucket", "fused_scan_topt"))
-    _phase("kernels", f"K5 attribution at the topt batch (K2 on its "
-           f"operands): group minima {k2:.4f} ms, + top-T merge "
-           f"{k5 - k2:.4f} ms = K5 {k5:.4f} ms")
+    merge = times["K5 merge"]
+    _phase("kernels", f"K5 attribution at the topt batch: its tile with the "
+           f"top-T epilogue {k5 - merge:.4f} ms (K2 on the same operands, "
+           f"storing every group minimum: {k2:.4f} ms, so the top-T in "
+           f"place of K2's stores {k5 - merge - k2:+.4f} ms), + the merge "
+           f"{merge:.4f} ms (timed alone) = K5 {k5:.4f} ms [{CARD}]")
     return records
 
 
@@ -2264,8 +2328,12 @@ def main(argv=None) -> int:
     _phase("device", f"{name}, {count} visible, torch {torch.__version__} "
            f"cuda {torch.version.cuda}")
     print(smi, flush=True)
-    global CARD, HOST
+    global CARD, HOST, MAX_SM_MHZ
     CARD, HOST = smi, f"{_cpu_model()}, {os.cpu_count()} cores"
+    MAX_SM_MHZ = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
 
     import instant_distance_tpu_torch as idt
     from instant_distance_tpu_torch.ops import _build
@@ -2280,7 +2348,11 @@ def main(argv=None) -> int:
            + (" | ".join(_ptxas_summary(_build.build_log))
               or "none (the libraries were built before)"))
     _phase("build", "sass: " + " | ".join(_sass_check(_build)))
-    _phase("build", "Hopper tile (K1/K6, K2/K3; one block an SM): "
+    _phase("build", "K5 (its tile kernels, then its merge): " + (
+        " | ".join(e for e in _ptxas_summary(_build.build_log)
+                   if any(k in e for k in K5_KERNELS))
+        or "none (the libraries were built before)"))
+    _phase("build", "Hopper tile (K1/K6, K2/K3/K5; one block an SM): "
            + _tile_plans(_build))
     from instant_distance_tpu_torch.ops import walk_kernel as wk
 

@@ -1,11 +1,12 @@
 // The Hopper scan tile (sm_90a) of K1 (csrc/scan_kernel.cu, with its
-// probe K6), K2 and K3 (csrc/bucket_kernel.cu): warpgroup MMA (wgmma)
+// probe K6), K2, K3 and K5 (csrc/bucket_kernel.cu): warpgroup MMA (wgmma)
 // fed by the Tensor Memory Accelerator (TMA).
 //
 // The TPU kernels it serves (instant_distance_tpu/ops/scan_kernel.py:
 // _bucket_scan_int_packed_kernel, _probe_kernel, _bucket_scan_kernel,
-// _bucket_scan_int_kernel) hand the whole [QB, D] x [D, CB] product to the
-// matrix unit; here it goes to the int8 tensor cores through wgmma.
+// _bucket_scan_int_kernel, _fused_scan_kernel) hand the whole [QB, D] x
+// [D, CB] product to the matrix unit; here it goes to the int8 tensor
+// cores through wgmma.
 //
 // What bounds the product on an H100: the int8 multiply-adds (2 * B * N * D
 // operations, 1,979 TOP/s) and, at D <= 300, the CUDA-core epilogue that

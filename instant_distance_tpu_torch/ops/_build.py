@@ -34,8 +34,8 @@ _SIGNATURES = {
     "idt_packed_scan": (_I, [_P] * 5 + [_I] * 6 + [_P]),
     "idt_bucket_scan": (_I, [_P] * 7 + [_I] * 6 + [_P]),
     "idt_bucket_scan_int": (_I, [_P] * 5 + [_I] * 5 + [_P]),
-    "idt_topt_scan": (_I, [_P] * 7 + [_I] * 7 + [_P]),
-    "idt_topt_max_topt": (_I, [_I, _I]),
+    "idt_topt_scan": (_I, [_P] * 9 + [_I] * 7 + [_P]),
+    "idt_topt_merge": (_I, [_P] * 4 + [_I] * 4 + [_P]),
     "idt_probe_scan": (_I, [_P] * 4 + [_I] * 6 + [_P]),
     "idt_wg_plan": (_I, [_I, _P]),
     "idt_walk_search": (_I, [_P] * 8 + [_I] * 7 + [_P]),

@@ -29,13 +29,13 @@ tensors and counts the launch in :data:`launches`; on CPU tensors it
 runs the plain torch version beside it (``*_plain``), which agrees with
 the kernel bit for bit.  It never falls back from one to the other.
 
-K1-K3 (and K6) run on the Hopper tile of ``csrc/wgmma_tile.cuh``, whose
-TMA copies read the codes point-major: :func:`point_major` keeps that
-copy of ``codes_t`` ([Npad, Dpad], Dpad = D rounded up to 32 with zero
-codes) beside the tensor, made once (by the operand builders on the
+K1, K2, K3, K5 and K6 run on the Hopper tile of ``csrc/wgmma_tile.cuh``,
+whose TMA copies read the codes point-major: :func:`point_major` keeps
+that copy of ``codes_t`` ([Npad, Dpad], Dpad = D rounded up to 32 with
+zero codes) beside the tensor, made once (by the operand builders on the
 card, else at the first launch) and reused by every later call on the
 same ``codes_t``.  The wrappers pad the batch's ``qc`` to Dpad the same
-way.  K5 reads ``codes_t`` itself.
+way.
 """
 
 from __future__ import annotations
@@ -142,8 +142,8 @@ def _aligned(t):
 
 def _check_tile(b: int, d: int, n: int, lsub: int, cb: int) -> None:
     """Shapes the Hopper tile cannot take raise before the launch: no d
-    bytes, more than 2^16 slabs (K2 and K3 keep each argmin slab in 16
-    bits), or a grid past 2^31 - 1 blocks."""
+    bytes, more than 2^16 slabs (K2, K3 and K5 keep each argmin slab in
+    16 bits), or a grid past 2^31 - 1 blocks."""
     if d < 1:
         raise ValueError("the scan kernels need D >= 1")
     if lsub > 1 << 16:
@@ -157,8 +157,8 @@ def _check_tile(b: int, d: int, n: int, lsub: int, cb: int) -> None:
 
 
 def _tile_args(qc, codes_t, lsub: int, cb: int):
-    """(queries, point-major codes, Dpad) of a K1-K3 launch, after the
-    tile's shape checks."""
+    """(queries, point-major codes, Dpad) of a launch on the Hopper tile,
+    after the tile's shape checks."""
     b, d = qc.shape
     _check_tile(b, d, codes_t.shape[1], lsub, cb)
     dpad = padded_width(d)
@@ -323,7 +323,8 @@ def _on_card(tensors) -> bool:
 
 def _launch(name: str, entry: str, dev, *args) -> None:
     """Call the C launcher ``entry`` on ``dev``'s current stream, raise on
-    a launch error, and count the launch for wrapper ``name``."""
+    a launch error, and count the launch for wrapper ``name`` (one a
+    call, whatever number of kernels the launcher starts)."""
     from ._build import check, library
 
     lib = library()
@@ -571,10 +572,11 @@ def fused_scan_topt(qc, qs, codes_t, scales, norms, *, lsub: int = 16,
     stride-group minima, each taking the smallest distance, the smallest
     id among the groups at that distance, and removing that group; ids
     are -1 where the distance is not finite (a block with fewer eligible
-    points).  Requires lsub | cb | N and, on the card, ``topt`` small
-    enough for one block's shared memory: a block keeps 128 queries' lists
-    (1 KiB per unit of ``topt``) beside the tile's stages: topt <= 108 at
-    D = 300 and <= 46 at D = 600.
+    points).  Requires lsub | cb | N.  On the card, a cb block of more
+    than 128 groups (cb / lsub > 128) spans several of the kernel's
+    column tiles: each writes its top ``topt`` to a scratch tensor
+    [B, N/cb, tiles, topt], which a second kernel of the same launch
+    merges.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     or raise.
@@ -585,22 +587,24 @@ def fused_scan_topt(qc, qs, codes_t, scales, norms, *, lsub: int = 16,
                                      lsub=lsub, topt=topt, cb=cb,
                                      is_dot=is_dot)
     _check_topt(qc, qs, codes_t, scales, norms, lsub, cb, topt)
-    from ._build import library
-
-    b, d = qc.shape
+    b = qc.shape[0]
     n = codes_t.shape[1]
-    max_t = library().idt_topt_max_topt(d, lsub)
-    if topt > max_t:
-        raise ValueError(f"topt = {topt} exceeds the kernel's shared memory "
-                         f"(at most {max_t} at D={d}, lsub={lsub})")
     dev = qc.device
-    nt = (n // cb) * topt
-    od = torch.empty((b, nt), dtype=torch.float32, device=dev)
-    oi = torch.empty((b, nt), dtype=torch.int32, device=dev)
+    od = torch.empty((b, (n // cb) * topt), dtype=torch.float32, device=dev)
+    oi = torch.empty((b, (n // cb) * topt), dtype=torch.int32, device=dev)
     if b and n:
-        _launch("fused_scan_topt", "idt_topt_scan", dev, _ptr(qc), _ptr(qs),
-                _ptr(codes_t), _ptr(scales), _ptr(norms), _ptr(od),
-                _ptr(oi), b, d, n, lsub, cb, topt, int(is_dot))
+        q, pm, dpad = _tile_args(qc, codes_t, lsub, cb)
+        scales, norms = _aligned(scales), _aligned(norms)
+        tiles = -(-(cb // lsub) // _TILE_N)
+        sv = si = None
+        if tiles > 1:
+            sv = torch.empty((b, n // cb, tiles, topt), dtype=torch.float32,
+                             device=dev)
+            si = torch.empty(sv.shape, dtype=torch.int32, device=dev)
+        _launch("fused_scan_topt", "idt_topt_scan", dev, _ptr(q), _ptr(qs),
+                _ptr(pm), _ptr(scales), _ptr(norms), _ptr(od), _ptr(oi),
+                _ptr(sv), _ptr(si), b, dpad, n, lsub, cb, topt,
+                int(is_dot))
     return od, oi
 
 

@@ -7,7 +7,7 @@ so it runs on a machine that has only PyTorch:
 
 Tolerance: none.  K1, K3 and K6 are integer kernels; K2, K4 and K5
 round every f32 operation in the plain version's order, so distances
-and ids are bit-exact too.  Each case also checks that the wrapper
+and ids are bit-exact too (NaN where the plain version has NaN).  Each case also checks that the wrapper
 counted one launch.  A callable metric's row blocks agree with one block
 within 1e-6 relative.  The parallel wrappers run on two shards of the
 card against two CPU shards (ids on >= 99% of entries).  One test item,
@@ -61,15 +61,21 @@ PACKED_CASES = (
 )
 #: K2 / K3 / K5: (B, D, N, lsub, cb, variant); each runs K2 and K5 both
 #: ways of is_dot.  300 is the fastText width of the 300-d path.  K5's
-#: edges: cb/lsub = 8, 48 and 4 (fewer groups than TOPT), 256 (four of
-#: its 64-column tiles), two chunks of d.  Variants: "ties" adds NaN
-#: norms to the first cb block (the other blocks keep K5's results
-#: finite), repeats slab 0 of every block in slabs 1 and 3 (codes,
-#: scales, norms and w), so the argmin must keep the first slab, and
-#: makes every odd group a copy of the even one before it, so K5 must
-#: order equal minima by id; "edges" makes the first cb block wholly
-#: ineligible and puts -inf norms in the second and NaN norms in the
-#: third; "misaligned" as for K1.
+#: edges on the Hopper tile (128 groups a column tile): cb/lsub = 8, 48
+#: and 4 (fewer groups than TOPT; one partial tile), 144 (a second,
+#: partial tile), 256 (two tiles, merged) and 320 (three, the last
+#: partial), two chunks of d.  Variants: "ties" adds NaN norms to the
+#: first cb block (the other blocks keep K5's results finite), repeats
+#: slab 0 of every block in slabs 1 and 3 (codes, scales, norms and w),
+#: so the argmin must keep the first slab, and makes every odd group a
+#: copy of the even one before it, so K5 must order equal minima by id;
+#: "crosstile" makes group j + 128 of every block a copy of group j, so
+#: that equal minima lie in two column tiles and K5's merge must order
+#: them by id; "edges" makes the first cb block wholly ineligible and
+#: puts -inf norms in the second and NaN norms in the third;
+#: "sentinels" puts them in one column tile of a block only: a NaN norm
+#: in the last tile of the first block, a -inf norm in the first tile of
+#: the second, both (in two tiles) in the third; "misaligned" as for K1.
 BUCKET_CASES = (
     (1024, 300, 65536, 32, 4096, ""),        # the build's and bucket's shapes
     (1024, 300, 65536, 64, 8192, ""),        # ScanIndex bucket_int at 300-d
@@ -93,6 +99,11 @@ BUCKET_CASES = (
     (65, 300, 4608, 16, 2304, ""),
     (1, 1024, 8192, 32, 4096, "ties"),
     (65, 1536, 4096, 16, 2048, ""),
+    # K5 across column tiles: equal minima in two tiles, a NaN or a -inf
+    # in one tile of a cb block, and three tiles with a partial last one
+    (129, 300, 8192, 16, 4096, "crosstile"),
+    (200, 300, 12288, 16, 4096, "sentinels"),
+    (65, 96, 15360, 16, 5120, "crosstile"),
 )
 TOPT = 8
 
@@ -154,6 +165,15 @@ def _bucket_operands(b, d, n, seed, device, lsub=1, cb=None, variant=""):
         norms[0, cb:2 * cb][torch.rand(cb, generator=g) < 0.05] = -torch.inf
         norms[0, 2 * cb:3 * cb][torch.rand(cb, generator=g) < 0.05] = \
             torch.nan
+    if variant == "sentinels":
+        ct = cb // lsub
+        for blk, col, val in ((0, ct - 1, torch.nan), (1, 0, -torch.inf),
+                              (2, 0, torch.nan), (2, ct - 1, -torch.inf)):
+            norms[0, blk * cb + 5 * ct + col] = val     # slab 5's point
+    if variant == "crosstile":
+        for t in (codes, scales, norms, w):
+            v = t.view(t.shape[0], n // cb, lsub, cb // lsub)
+            v[..., 128:] = v[..., :cb // lsub - 128].clone()
     if variant == "ties":
         norms[0, :cb][torch.rand(cb, generator=g) < 0.02] = torch.nan
         for t in (codes, scales, norms, w):
@@ -242,9 +262,19 @@ def _check_malformed(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         tsk.fused_scan_topt(qc, qs, codes.T.contiguous().T, scales, norms,
                             lsub=8, cb=64)
-    with pytest.raises(ValueError, match="shared memory"):
-        tsk.fused_scan_topt(qc, qs, codes, scales, norms, lsub=8, topt=1000,
-                            cb=64)
+
+
+def _check_topt_large(cuda):
+    """K5 takes any topt: T = 1000 over cb blocks of 8 groups (one tile)
+    and of 256 (two tiles, merged), more rounds than groups, bit-exact."""
+    qc, qs, codes, scales, norms, _ = _bucket_operands(8, 16, 4096, 0, cuda)
+    for lsub, cb in ((8, 64), (8, 2048)):
+        args = (qc, qs, codes, scales, norms)
+        got = _launched("fused_scan_topt", lambda: tsk.fused_scan_topt(
+            *args, lsub=lsub, topt=1000, cb=cb))
+        _same(got, tsk.fused_scan_topt_plain(*args, lsub=lsub, topt=1000,
+                                             cb=cb),
+              f"K5 topt=1000 lsub={lsub} cb={cb}")
 
 
 def _check_callable_blocks(cuda):
@@ -307,6 +337,7 @@ def test_kernel_matches_plain(cuda):
     _check_packed(cuda)
     _check_bucket(cuda)
     _check_malformed(cuda)
+    _check_topt_large(cuda)
     _check_callable_blocks(cuda)
     _check_parallel_card(cuda)
     check_packed_kernels(cuda)

@@ -1,9 +1,8 @@
 // A CPU stand-in for the parts of the CUDA runtime and device library that
-// instant_distance_tpu_torch/csrc uses, so that g++ can build and run the
-// kernels (see run.py).  One block runs at a time, one std::thread per
-// CUDA thread; __syncthreads is a block barrier, and the warp collectives
-// (shuffles, ballots, and the ldmatrix / mma.sync that run.py substitutes
-// for the inline PTX) meet at a warp barrier.
+// instant_distance_tpu_torch/csrc/walk_kernel.cu uses, so that g++ can
+// build and run it (see run.py).  One block runs at a time, one
+// std::thread per CUDA thread; __syncthreads is a block barrier, and the
+// warp collectives (shuffles, ballots) meet at a warp barrier.
 #pragma once
 #include <barrier>
 #include <climits>
@@ -30,11 +29,7 @@ struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
-struct uint4 { uint32_t x, y, z, w; };
 struct float4 { float x, y, z, w; };
-inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
-  return {a, b, c, d};
-}
 
 inline thread_local dim3 threadIdx, blockIdx, blockDim;
 typedef int cudaError_t;
@@ -68,8 +63,6 @@ inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
-inline float __int2float_rn(int a) { return float(a); }
-inline int __ffsll(long long x) { return __builtin_ffsll(x); }
 inline float __uint_as_float(uint32_t u) {
   float f;
   memcpy(&f, &u, 4);
@@ -98,8 +91,6 @@ struct Emu {
   uint8_t* smem = nullptr;
   std::barrier<>* block = nullptr;
   std::vector<std::unique_ptr<std::barrier<>>> warps;
-  uint32_t addr[32][32];
-  uint32_t frag[32][32][6];
   uint64_t xchg[32][32];
 };
 inline Emu* g_emu = nullptr;
@@ -109,7 +100,6 @@ inline uint64_t __cvta_generic_to_shared(const void* p) {
   return uint64_t(static_cast<const uint8_t*>(p) - g_emu->smem);
 }
 inline void warp_sync() { g_emu->warps[threadIdx.x / 32]->arrive_and_wait(); }
-inline void __syncwarp(unsigned = 0xffffffffu) { warp_sync(); }
 
 // The warp collectives, for full warps: every lane posts its value, then
 // reads its source lane's.

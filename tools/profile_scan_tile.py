@@ -1,5 +1,5 @@
 """Where the Hopper scan tile's time goes, on the card: cycles per phase of
-a slab, for K1 (with its probe K6) and K2 at the smoke's main shapes.
+a slab, for K1 (with its probe K6), K2 and K5 at the smoke's main shapes.
 
     python tools/profile_scan_tile.py [--iters N]
 
@@ -10,8 +10,10 @@ nvcc flags, runs them on ``chip_smoke.py``'s random operands and prints,
 per shape, the CUDA-event time and, per consumer warp and slab, the mean
 cycles spent issuing the slab's products (with the waits for its code
 chunks, given apart), draining them (``wgmma.wait_group 0``) and in the
-epilogue (the caller's reduction and the stage's release), and per
-block the producer's cycles, its waits for free stages among them.  A
+epilogue (the caller's reduction and the stage's release), the cycles
+of the consumer warp's fin() (K2's stores of every group, K5's top-T
+rounds and their stores), and per block the producer's cycles, its
+waits for free stages among them.  A
 phase's cycles are the warp's wall time, so they include waiting for
 issue slots that the SM's other warps hold.  Needs a CUDA card; the
 marks cost time of their own, so take kernel times from
@@ -35,11 +37,17 @@ OUT = os.path.join(HERE, "build", "profile_scan_tile")
 #: (text of csrc/wgmma_tile.cuh, text put in its place): the marks.
 #: Counters: 0 issue (with the chunk waits), 1 drain, 2 epilogue, 3 warp
 #: slabs, 4 chunk waits, 5 producer's stage waits, 6 producer cycles,
-#: 7 producers.
+#: 7 producers, 8 fin() cycles, 9 consumer warps.
+NPROF = 10
 MARKS = (
     ("namespace idt {\nnamespace wg {\n",
      "namespace idt {\nnamespace wg {\n"
-     "__device__ unsigned long long prof[8];\n"),
+     f"__device__ unsigned long long prof[{NPROF}];\n"),
+    ("      consume(epi);\n      fin();\n",
+     "      consume(epi);\n      const long long f0 = clock64();\n"
+     "      fin();\n      if ((threadIdx.x & 31) == 0) {\n"
+     "        atomicAdd(&prof[8], clock64() - f0);\n"
+     "        atomicAdd(&prof[9], 1ull);\n      }\n"),
     ("    for (int t = 0; t < lsub; ++t) {\n      const int p = p0 + t * ct;\n",
      "    unsigned long long ce = 0;\n    const long long tp = clock64();\n"
      "    for (int t = 0; t < lsub; ++t) {\n      const int p = p0 + t * ct;\n"),
@@ -75,7 +83,7 @@ PRODUCER_END = (
 READ = '''
 extern "C" int idt_prof_read(unsigned long long* out) {
   cudaMemcpyFromSymbol(out, idt::wg::prof, sizeof(idt::wg::prof));
-  const unsigned long long zero[8] = {};
+  const unsigned long long zero[sizeof(idt::wg::prof) / 8] = {};
   cudaMemcpyToSymbol(idt::wg::prof, zero, sizeof(zero));
   return static_cast<int>(cudaGetLastError());
 }
@@ -139,7 +147,7 @@ def main(argv=None) -> int:
                          text=True, timeout=60, check=True).stdout.strip(),
           flush=True)
     dev = torch.device("cuda", 0)
-    buf = (ctypes.c_ulonglong * 8)()
+    buf = (ctypes.c_ulonglong * NPROF)()
 
     def profile(what, lib, call):
         call()
@@ -155,11 +163,12 @@ def main(argv=None) -> int:
         if lib.idt_prof_read(buf):
             raise RuntimeError("reading the counters failed")
         c = [v / args.iters for v in buf]
-        slabs, blocks = max(c[3], 1), max(c[7], 1)
+        slabs, blocks, warps = max(c[3], 1), max(c[7], 1), max(c[9], 1)
         print(f"{what}: {start.elapsed_time(end) / args.iters:.3f} ms with "
               f"the marks; cycles a consumer warp and slab: issue "
               f"{c[0] / slabs:.0f} (chunk waits {c[4] / slabs:.0f}), drain "
-              f"{c[1] / slabs:.0f}, epilogue {c[2] / slabs:.0f}; producer "
+              f"{c[1] / slabs:.0f}, epilogue {c[2] / slabs:.0f}; fin() "
+              f"{c[8] / warps:.0f} a consumer warp; producer "
               f"{c[6] / blocks:.0f} cycles a block, {c[5] / blocks:.0f} of "
               f"them waiting for free stages", flush=True)
 
@@ -167,12 +176,13 @@ def main(argv=None) -> int:
     for label, kernel, b, d, n, lsub, cb, opts in (
             smoke.KERNEL_CASES + smoke.LADDER_CASES):
         if label not in ("scan batch", "build wave", "replicated scan slice",
-                         "ladder scan lsub 16", "ladder build wave") or \
+                         "topt batch", "ladder scan lsub 16",
+                         "ladder build wave") or \
                 kernel not in ("fused_scan_bucket_int_packed",
-                               "fused_scan_bucket"):
+                               "fused_scan_bucket", "fused_scan_topt"):
             continue
-        rows, shared, _ = smoke._operands(torch, tsk, dev, kernel, b, d, n,
-                                          lsub, cb, opts)
+        rows, shared, kw = smoke._operands(torch, tsk, dev, kernel, b, d,
+                                           n, lsub, cb, opts)
         q, pm, dpad = tsk._tile_args(rows[0], shared[-1] if kernel ==
                                      "fused_scan_bucket_int_packed" else
                                      shared[0], lsub, cb)
@@ -186,7 +196,7 @@ def main(argv=None) -> int:
                                            pm.data_ptr(), od.data_ptr(), b,
                                            dpad, n, lsub, cb,
                                            tsk.PROBES.index(p), stream()))
-        else:
+        elif kernel == "fused_scan_bucket":
             lib, (qs,), (scales, norms) = (libs["bucket_kernel"], rows[1:],
                                            shared[1:])
             oi = torch.empty_like(od)
@@ -195,6 +205,22 @@ def main(argv=None) -> int:
                 scales.data_ptr(), norms.data_ptr(), od.data_ptr(),
                 oi.data_ptr(), b, dpad, n, lsub, cb, int(opts["is_dot"]),
                 stream()))
+        else:
+            # K5: its tile into the scratch, then the merge (whose time is
+            # in the event time, not in the marks)
+            lib, (qs,), (scales, norms) = (libs["bucket_kernel"], rows[1:],
+                                           shared[1:])
+            topt = kw["topt"]
+            tiles = -(-(cb // lsub) // tsk._TILE_N)
+            sv = torch.empty((b, n // cb * tiles * topt), device=dev)
+            si = torch.empty(sv.shape, dtype=torch.int32, device=dev)
+            tv = torch.empty((b, n // cb * topt), device=dev)
+            ti = torch.empty(tv.shape, dtype=torch.int32, device=dev)
+            profile(f"{what} topt={topt}", lib, lambda: lib.idt_topt_scan(
+                q.data_ptr(), qs.data_ptr(), pm.data_ptr(),
+                scales.data_ptr(), norms.data_ptr(), tv.data_ptr(),
+                ti.data_ptr(), sv.data_ptr(), si.data_ptr(), b, dpad, n,
+                lsub, cb, topt, int(opts["is_dot"]), stream()))
         del rows, shared, q, pm, od
         torch.cuda.empty_cache()
     return 0

@@ -9,12 +9,12 @@ same whatever the root), the kernels from ``DIR/instant_distance_tpu_torch``
 (default: this checkout), built into ``DIR/build/kernels``.  Needs a CUDA
 card.  Prints the card's name and power limit, then one JSON object:
 ``{"root": DIR, "ms": {"kernel case": mean CUDA-event ms}, "floor_ms":
-{"kernel case": ms}}``, floor_ms being K2's CUDA-core floor: the B * N
-elements of its f32 epilogue times the operations an element takes
-(``K2_EPILOGUE_OPS``) at 132 SMs x 128 lanes x the card's
-``clocks.max.sm``.  Run the two checkouts in turns (A, B, B, A) on one
-machine, and compare only times taken there together: cards differ in
-power limit and neighbours.
+{"kernel case": ms}}``, floor_ms being K2's (and K5's) CUDA-core floor:
+the B * N elements of its f32 epilogue times the operations an element
+takes at 132 SMs x 128 lanes x the card's ``clocks.max.sm``
+(``chip_smoke.epilogue_floor_ms``).  Run the two checkouts in turns (A,
+B, B, A) on one machine, and compare only times taken there together:
+cards differ in power limit and neighbours.
 """
 
 from __future__ import annotations
@@ -46,14 +46,6 @@ CASES = (("fused_scan_bucket_int_packed", "scan batch"),
          ("fused_scan_bucket_int_packed", "ladder scan lsub 16"),
          ("fused_scan_bucket_int", "ladder scan lsub 32"),
          ("fused_scan_bucket", "ladder build wave"))
-
-#: Operations of one element of K2's epilogue (csrc/bucket_kernel.cu:
-#: f32_value and min_update): int-to-float, qs * s, * dot, * 2 (L2 only),
-#: the subtraction, the compare, the NaN test and the two selects (value,
-#: argmin slab), by is_dot.
-K2_EPILOGUE_OPS = {False: 9, True: 8}
-#: SMs and lanes of an H100 SXM (NVIDIA's data sheet).
-SMS, LANES = 132, 128
 
 
 def main(argv=None) -> int:
@@ -94,10 +86,9 @@ def main(argv=None) -> int:
     out, floor = {}, {}
     for kernel, label in CASES:
         b, d, n, lsub, cb, opts = cases[kernel, label]
-        if kernel == "fused_scan_bucket":
-            floor[f"{kernel} {label}"] = (
-                b * n * K2_EPILOGUE_OPS[opts["is_dot"]]
-                / (SMS * LANES * mhz * 1e6) * 1e3)
+        if kernel in ("fused_scan_bucket", "fused_scan_topt"):
+            floor[f"{kernel} {label}"] = smoke.epilogue_floor_ms(
+                b, n, opts["is_dot"], mhz)
         rows, shared, kw = smoke._operands(torch, tsk, dev, kernel, b, d, n,
                                            lsub, cb, opts)
         out[f"{kernel} {label}"] = smoke._cuda_ms(
